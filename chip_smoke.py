@@ -2,23 +2,38 @@
 
     python3 chip_smoke.py
 
-Drives the port's headline path — the script
+Drives the port's two paths through the entry points a user calls. First
+the headline analysis path — the script
     r = rdf(element('O'), element('O'), 10.0);
     v = sdf(residue(1:64), element('H'), 5.0);
     {lin, plan, iso} = shape_weights(all);
 over a 100,002-atom periodic water box, 384 frames — through the entry
 points a user calls (datagen.water_box_device → script.compile_script →
-eval.Evaluator). Phases, one result line each:
+eval.Evaluator). Then the molecule render path at the JAX package's own
+render configuration (bench.py): the box's frames at 1920×1080, eye at box
+centre + (0, 0, 1.6·box), perspective(45°, 16/9, 1, 500), CPK colours, in
+spacefill and in licorice (133,336 bond half-capsules) — through
+render.raster.render_molecules → render.postprocess.execute (HBAO, ACES,
+compose, FXAA 3.11). Phases, one result line each:
 
 1. the device (fails without CUDA; nothing falls back to the CPU);
-2. the build of the hand-written CUDA kernels from csrc/ (nvcc, sm_90a);
-3. each kernel against its plain PyTorch version on the card, at the
-   headline shape, with both times (CUDA events, median of 20);
-4. the main path: warm-up, then three timed runs over all frames, with the
-   kernels' launch counts set to 0 before and read after;
-5. the path's output against references: the per-frame RDF against the
-   plain histogram, and the whole script on a small box against the same
-   script on the CPU.
+2. the build of the hand-written CUDA kernels from csrc/ (one nvcc per
+   library, sm_90a, all started together), with ptxas' registers, shared
+   memory and spills;
+3. pair_hist against its plain PyTorch version at the headline shape, with
+   both times (CUDA events, median of 20);
+4. the analysis path: warm-up, then three timed runs over all frames, with
+   the kernels' launch counts set to 0 before and read after;
+5. its output against references: the per-frame RDF against the plain
+   histogram, and the whole script on a small box against the CPU;
+6. raster against its plain version on the full-width frame 0, spacefill
+   and licorice: mismatches, errors, tile-list sizes, ray tests, and the
+   kernel, binning + kernel and plain times;
+7. the render path: frames 0–15, render + postprocess, three timed runs,
+   launch counts set to 0 before and read after;
+8. the render output against references: sampled pixels of the full-width
+   frames against a brute-force ray cast over every primitive, and the
+   whole chain on a small box against the CPU.
 
 Ends with a JSON line of kernel results, the `nvidia-smi` name/power-limit
 line, and the JSON status line. Any failure raises (non-zero exit).
@@ -34,14 +49,21 @@ import time
 import numpy as np
 import torch
 
-from viamd_tpu_torch.cuda_build import build_info
+from viamd_tpu_torch import cuda_build, datagen
 from viamd_tpu_torch.datagen import water_box, water_box_device
 from viamd_tpu_torch.eval import Evaluator
 from viamd_tpu_torch.interop import trajectory_from_numpy
 from viamd_tpu_torch.ops import cuda_rdf
 from viamd_tpu_torch.ops.neighbors import build_cell_list, choose_grid_r
 from viamd_tpu_torch.ops.pbc import inv_basis_of
-from viamd_tpu_torch.ops.rdf import pair_dist_histogram_scatter_idx
+from viamd_tpu_torch.ops.rdf import pair_dist_histogram_scatter_idx, sqrt_rn
+from viamd_tpu_torch.render import cuda_raster, postprocess
+from viamd_tpu_torch.render.raster import (
+    RasterSettings,
+    build_scene,
+    render_molecules,
+    render_scene,
+)
 from viamd_tpu_torch.script import compile_script
 
 HEADLINE = (
@@ -55,6 +77,28 @@ CHUNK = 64
 SEED = 3
 NBINS, R_MAX = 128, 10.0
 HIST_TOL = 2  # counts per bin; totals must be equal
+WIDTH, HEIGHT = 1920, 1080
+RENDER_FRAMES = 16
+REPS = ("spacefill", "licorice")
+RGB_TOL = 1e-5  # kernel vs plain: powf against torch.pow; all else exact
+TIE_RTOL = 1e-6  # a pick mismatch must be a near-tie |t1 - t2| <= 1e-6 t
+# NVIDIA H100 SXM data sheet: f32 outside the tensor cores, HBM3 bandwidth
+PEAK_F32, PEAK_BYTES = 67e12, 3.35e12
+# f32 operations (an add, multiply, divide, sqrt, rint, max or compare each
+# count one) that each function needs, with work that depends on one operand
+# only counted once per operand. pair_hist on an orthorhombic box, per
+# candidate pair: d (3), d / box (3), rint (3), subtract (3), · box (3),
+# |d|² (5), sqrt, the r_max test; per in-range pair the bin (1). With A == B
+# the histogram is symmetric, so only unordered pairs are needed.
+OPS_PAIR, OPS_PAIR_HIT = 22, 1
+# raster, per (pixel, candidate): sphere dc (4), disc (3), t (4), three tests;
+# capsule da (4), dp (4), A (3), Bq (2), disc (3), t (4), sax (2), five tests.
+OPS_SPHERE, OPS_CAPSULE = 14, 27
+# once per primitive: |c|² − r² (7); p·a and |p|² − (p·a)² − r² (14)
+OPS_SPHERE_PRIM, OPS_CAPSULE_PRIM = 7, 14
+# per pixel: its ray dx, dy, |d|², 1/|d|² (15); per hit pixel: the normal
+# and the Phong shading (52)
+OPS_RAY, OPS_SHADE = 15, 52
 
 
 def phase(name: str, t0: float, msg: str) -> None:
@@ -78,6 +122,13 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def bound(ops: float, nbytes: float) -> tuple[float, str]:
+    """Least time (ms) on the card for `ops` f32 operations and `nbytes`
+    moved, and which of the two bounds it."""
+    t_ops, t_bytes = ops / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
 def hist_err(got: torch.Tensor, want: torch.Tensor) -> float:
     """Max |got − want| per bin; raises unless totals are equal and every
     bin is within HIST_TOL counts."""
@@ -90,6 +141,106 @@ def hist_err(got: torch.Tensor, want: torch.Tensor) -> float:
     if w.sum().item() <= 0:
         raise AssertionError("empty histogram")
     return err
+
+
+def tile_pixels(width: int, height: int, dev) -> torch.Tensor:
+    """(T,) number of in-frame pixels of each 16×16 tile."""
+    t = cuda_raster.TILE
+    wx = torch.clamp(width - torch.arange(0, width, t, device=dev), max=t)
+    wy = torch.clamp(height - torch.arange(0, height, t, device=dev), max=t)
+    return (wy[:, None] * wx[None, :]).reshape(-1).double()
+
+
+def compare_raster(got, want) -> dict:
+    """Kernel (rgba, depth, pick) against the plain version's: raises
+    unless every pick or alpha mismatch is a near-tie (both hit, depths
+    within TIE_RTOL) and rgb is within RGB_TOL where the picks agree."""
+    (img, dep, pick), (pimg, pdep, ppick) = got, want
+    pick_mis = pick != ppick
+    alpha_mis = img[..., 3] != pimg[..., 3]
+    odd = pick_mis | alpha_mis
+    hit = (pick >= 0) & (ppick >= 0)
+    tie = odd & hit & ((dep - pdep).abs() <= TIE_RTOL * pdep)
+    if bool((odd & ~tie).any()):
+        raise AssertionError(f"{int((odd & ~tie).sum())} raster mismatches are not near-ties")
+    same = ~odd & (ppick >= 0)
+    depth_err = float((dep[same] - pdep[same]).abs().max()) if bool(same.any()) else 0.0
+    rgb_err = float((img[~odd][:, :3] - pimg[~odd][:, :3]).abs().max())
+    if rgb_err > RGB_TOL or depth_err != 0.0:
+        raise AssertionError(f"raster rgb err {rgb_err}, depth err {depth_err}")
+    if int((ppick >= 0).sum()) < 0.2 * ppick.numel():
+        raise AssertionError("raster frame mostly empty")
+    return dict(pick_mismatch=int(pick_mis.sum()), alpha_mismatch=int(alpha_mis.sum()),
+                ties=int(tie.sum()), depth_err=depth_err, rgb_err=rgb_err,
+                hits=int((ppick >= 0).sum()), max_abs_err=max(depth_err, rgb_err))
+
+
+def brute_pick(scene, ys, xs) -> torch.Tensor:
+    """Pick of pixels (ys, xs) from a ray cast over EVERY primitive of the
+    scene (no tile lists), with the plain version's float32 arithmetic:
+    spheres with the centre in front, then half-capsules, nearest hit."""
+    s = scene.shading
+    f32 = torch.float32
+    one = torch.ones((), dtype=f32, device=ys.device)
+    dx = ((xs.to(f32) + 0.5) * s.two_over_w - 1.0 + s.p02) * (one / s.p00)
+    dy = ((ys.to(f32) + 0.5) * s.two_over_h - 1.0 + s.p12) * (one / s.p11)
+    dd = dx * dx + dy * dy + 1.0
+    dx, dy, dd = dx[:, None], dy[:, None], dd[:, None]
+    cx, cy, cz, r = scene.sph.T
+    cc = cx * cx + cy * cy + cz * cz - r * r
+    dc = dx * cx + dy * cy - cz
+    disc = dc * dc - dd * cc
+    t = (dc - sqrt_rn(disc.clamp_min(0.0))) * (1.0 / dd)
+    ok = (-cz > 1e-6) & (disc > 0.0) & (t > 1e-6)
+    ts, si = torch.where(ok, t, torch.full_like(t, float("inf"))).min(dim=1)
+    best = torch.where(torch.isfinite(ts), scene.sph_ci[si, 1], torch.full_like(si, -1).int())
+    if scene.cyl.shape[0]:
+        qx, qy, qz, ax, ay, az, ln, rr = scene.cyl.T
+        pa = qx * ax + qy * ay + qz * az
+        cc2 = qx * qx + qy * qy + qz * qz - pa * pa - rr * rr
+        da = dx * ax + dy * ay - az
+        dp = dx * qx + dy * qy - qz
+        A = (dd - da * da).clamp_min(1e-9)
+        Bq = dp - da * pa
+        disc = Bq * Bq - A * cc2
+        t = (Bq - sqrt_rn(disc.clamp_min(0.0))) / A
+        sax = t * da - pa
+        ok = (disc > 0.0) & (t > 1e-6) & (sax >= 0.0) & (sax <= ln)
+        tc, ci = torch.where(ok, t, torch.full_like(t, float("inf"))).min(dim=1)
+        best = torch.where(tc < ts, scene.cyl_ci[ci, 1], best)
+    return best
+
+
+def small_chain(dev) -> str:
+    """render_molecules → execute on a 1,500-atom box at 320×240, CUDA
+    against the CPU (held to the JAX package by tests/test_torch_render.py
+    and tests/test_torch_postprocess.py). Raster: picks, alpha and depth
+    equal, rgb within RGB_TOL; the finished frame within 1e-4 at 97% of
+    pixels (FXAA's ties, see tests/test_torch_postprocess.py)."""
+    sys_, traj = water_box(500, n_frames=1, seed=SEED)
+    x = traj.load_frames([0])[0][0]
+    d = datagen.render_inputs(sys_, 320, 240, (0.9, 0.7, 1.2))
+    notes = []
+    for rep in REPS:
+        s = RasterSettings(width=320, height=240, rep=rep)
+        res = {}
+        for dev_ in ("cpu", dev):
+            img, dep, pick = render_molecules(x, d["radii"], d["colors"], d["view"],
+                                              d["proj"], s, d["bonds"], device=dev_)
+            out = postprocess.execute(img, dep, postprocess.PostprocessSettings(),
+                                      proj=d["proj"])
+            res[str(dev_)] = [v.cpu() for v in (img, dep, pick, out)]
+        (ci, cd, cp, co), (gi, gd, gp, go) = res["cpu"], res[str(dev)]
+        if not (torch.equal(cp, gp) and torch.equal(ci[..., 3], gi[..., 3]) and torch.equal(cd, gd)):
+            raise AssertionError(f"{rep}: small-box raster differs between CUDA and the CPU")
+        rgb = float((ci - gi).abs().max())
+        err = (co - go).abs().amax(-1)
+        frac = float((err <= 1e-4).double().mean())
+        if rgb > RGB_TOL or frac < 0.97:
+            raise AssertionError(f"{rep}: small-box chain rgb {rgb}, {frac} of pixels within 1e-4")
+        notes.append(f"{rep} raster equal (rgb {rgb:.2g}), frame within 1e-4 at "
+                     f"{frac * 100:.2f}% (max {float(err.max()):.3g})")
+    return "; ".join(notes)
 
 
 def main() -> None:
@@ -110,15 +261,18 @@ def main() -> None:
 
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    build_s = cuda_rdf.load_kernel()
-    ptxas = [
-        ln.strip() for ln in build_info["pair_hist"]["log"].splitlines()
-        if "registers" in ln or "spill" in ln
-    ]
-    phase("build", t0, (
-        f"pair_hist.cu nvcc {build_s:.2f} s; " + " | ".join(ptxas)
-        if build_s else "pair_hist.cu: reused the build in viamd_tpu_torch/_build"
-    ))
+    cuda_build.build(dict([cuda_rdf.LIBRARY, cuda_raster.LIBRARY]))
+    lines = []
+    for mod in (cuda_rdf, cuda_raster):
+        secs = mod.load_kernel()
+        name = mod.LIBRARY[0]
+        ptxas = [
+            ln.strip() for ln in cuda_build.build_info[name]["log"].splitlines()
+            if "registers" in ln or "spill" in ln
+        ]
+        lines.append(f"{name}: nvcc {secs:.2f} s; " + " | ".join(ptxas) if secs
+                     else f"{name}: reused the build in viamd_tpu_torch/_build")
+    phase("build", t0, " || ".join(lines))
 
     # -- 3. kernel vs plain at the headline shape --------------------------
     t0 = time.perf_counter()
@@ -161,11 +315,25 @@ def main() -> None:
     ))
     ms_plain = cuda_ms(lambda: plain(x0, idx_o, idx_o))
     hits = int(h_plain.sum().item())
+    # candidate pairs: every A atom against the 27-cell stencil around it
+    occ = (cl.cell_start[1:] - cl.cell_start[:-1]).double().reshape(dims)
+    near = sum(
+        torch.roll(occ, (ox, oy, oz), (0, 1, 2))
+        for ox in (-1, 0, 1) for oy in (-1, 0, 1) for oz in (-1, 0, 1)
+    )
+    pairs = int((occ * near).sum().item())
+    if bool((basis != torch.diag(box)).any()):
+        raise AssertionError("the operation count assumes an orthorhombic box")
+    # unordered pairs of distinct atoms: the stencil holds each atom itself
+    needed = (pairs - idx_o_np.size) / 2
+    nbytes_hist = xs.numel() * 4 + ids.numel() * 4 + cl.cell_start.numel() * 4 + 72 + NBINS * 4
+    hist_bound, hist_bound_by = bound(needed * OPS_PAIR + hits / 2 * OPS_PAIR_HIT, nbytes_hist)
     phase("kernel", t0, (
-        f"pair_hist O-O n={idx_o_np.size} dims={dims}: in-range pairs {hits}, "
-        f"max bin err {err_same:g} (A!=B {err_ab:g}); kernel {ms_kernel:.4f} ms, "
-        f"cell list + kernel {ms_route:.4f} ms, plain {ms_plain:.4f} ms, "
-        f"plain/kernel {ms_plain / ms_kernel:.1f}x"
+        f"pair_hist O-O n={idx_o_np.size} dims={dims}: candidate pairs {pairs}, "
+        f"in-range pairs {hits}, max bin err {err_same:g} (A!=B {err_ab:g}); "
+        f"kernel {ms_kernel:.4f} ms, cell list + kernel {ms_route:.4f} ms, "
+        f"plain {ms_plain:.4f} ms, plain/kernel {ms_plain / ms_kernel:.1f}x; "
+        f"bound {hist_bound:.4f} ms ({hist_bound_by}; {needed:.0f} unordered pairs)"
     ))
 
     # -- 4. the main path ----------------------------------------------------
@@ -239,16 +407,149 @@ def main() -> None:
         f"{float(np.abs(v_cuda - v_cpu).max()):.3g}"
     ))
 
-    print(json.dumps({"kernels": [{
-        "name": "pair_hist",
-        "route": "cuda",
-        "source": "viamd_tpu_torch/csrc/pair_hist.cu",
-        "replaces": "viamd_tpu/ops/pallas_rdf.py:58",
-        "launches": launches,
-        "max_abs_err": err_same,
-        "ms": ms_kernel,
-        "plain_ms": ms_plain,
-    }]}))
+    # -- 6. raster kernel vs plain at full width ------------------------------
+    t0 = time.perf_counter()
+    scene_in = datagen.render_inputs(sys_, WIDTH, HEIGHT, device=dev)
+    x0 = traj.device_frame(0)[0]
+    raster = {}
+    for rep in REPS:
+        s = RasterSettings(width=WIDTH, height=HEIGHT, rep=rep)
+        args = (scene_in["radii"], scene_in["colors"], scene_in["view"],
+                scene_in["proj"], s, scene_in["bonds"])
+        scene = build_scene(x0, *args, device=dev)
+        got = render_scene(scene)
+        want = cuda_raster.raster_tiles_plain(*scene.raster_args())
+        torch.cuda.synchronize()
+        cmp = compare_raster(got, want)
+        ls = scene.lists
+        per_tile = [st[1:] - st[:-1] for st in (ls.s_start, ls.c_start)]
+        npix = tile_pixels(WIDTH, HEIGHT, dev)
+        tests = [int((c.double() * npix).sum().item()) for c in per_tile]
+        nbytes = (scene.sph.numel() * 4 + scene.sph_ci.numel() * 4
+                  + scene.cyl.numel() * 4 + scene.cyl_ci.numel() * 4
+                  + (ls.s_list.numel() + ls.c_list.numel()
+                     + ls.s_start.numel() + ls.c_start.numel()) * 4
+                  + WIDTH * HEIGHT * 24)
+        ops = (tests[0] * OPS_SPHERE + tests[1] * OPS_CAPSULE
+               + scene.sph.shape[0] * OPS_SPHERE_PRIM + scene.cyl.shape[0] * OPS_CAPSULE_PRIM
+               + WIDTH * HEIGHT * OPS_RAY + cmp["hits"] * OPS_SHADE)
+        b_ms, b_by = bound(ops, nbytes)
+        ms_k = cuda_ms(lambda: render_scene(scene))
+        ms_bk = cuda_ms(lambda: render_scene(build_scene(x0, *args, device=dev)))
+        ms_p = cuda_ms(lambda: cuda_raster.raster_tiles_plain(*scene.raster_args()))
+        raster[rep] = dict(cmp, ms=ms_k, binned_ms=ms_bk, plain_ms=ms_p,
+                           bound_ms=b_ms, bound_by=b_by, scene=scene,
+                           pick=got[2])
+        phase("raster", t0, (
+            f"{rep} {WIDTH}x{HEIGHT}, {scene.sph.shape[0]} spheres, "
+            f"{scene.cyl.shape[0]} half-capsules: tile-list entries "
+            f"{ls.s_list.numel()} + {ls.c_list.numel()}, largest tile list "
+            f"{int(per_tile[0].max())} + {int(per_tile[1].max())}, ray tests "
+            f"{tests[0]} + {tests[1]}; pick mismatches {cmp['pick_mismatch']} "
+            f"(near-ties {cmp['ties']}), alpha mismatches {cmp['alpha_mismatch']}, "
+            f"max depth err {cmp['depth_err']:.3g}, max rgb err {cmp['rgb_err']:.3g}; "
+            f"hits {cmp['hits']}; kernel {ms_k:.4f} ms, binning + kernel "
+            f"{ms_bk:.4f} ms, plain {ms_p:.4f} ms, plain/kernel "
+            f"{ms_p / ms_k:.1f}x; bound {b_ms:.4f} ms ({b_by}; {ops:.6g} operations)"
+        ))
+
+    # -- 7. the render path ----------------------------------------------------
+    t0 = time.perf_counter()
+    pp = postprocess.PostprocessSettings()
+
+    def render_frames(rep):
+        s = RasterSettings(width=WIDTH, height=HEIGHT, rep=rep)
+        t_r = t_p = 0.0
+        for f in range(RENDER_FRAMES):
+            x = traj.device_frame(f)[0]
+            t1 = time.perf_counter()
+            img, dep, _ = render_molecules(
+                x, scene_in["radii"], scene_in["colors"], scene_in["view"],
+                scene_in["proj"], s, scene_in["bonds"], device=dev,
+            )
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            out = postprocess.execute(img, dep, pp, proj=scene_in["proj"])
+            torch.cuda.synchronize()
+            t_r, t_p = t_r + t2 - t1, t_p + time.perf_counter() - t2
+        if not (out.shape == (HEIGHT, WIDTH, 3) and bool(torch.isfinite(out).all())):
+            raise AssertionError(("render path output", out.shape))
+        return t_r * 1e3 / RENDER_FRAMES, t_p * 1e3 / RENDER_FRAMES
+
+    for rep in REPS:  # warm-up: allocator, cuRAND-free, nothing to compile
+        render_frames(rep)
+    torch.cuda.reset_peak_memory_stats()
+    cuda_rdf.launches = cuda_raster.launches = 0
+    path = {rep: [render_frames(rep) for _ in range(3)] for rep in REPS}
+    raster_launches = cuda_raster.launches  # read just after the render path
+    hist_launches_render = cuda_rdf.launches
+    render_peak = torch.cuda.max_memory_allocated() / 2**30
+    if raster_launches < len(REPS) * 3 * RENDER_FRAMES:
+        raise AssertionError(f"raster launched {raster_launches} times in the render path")
+    for rep in REPS:
+        best = min(path[rep], key=sum)
+        phase("render", t0, (
+            f"{rep} {WIDTH}x{HEIGHT} frames 0-{RENDER_FRAMES - 1}, ms/frame "
+            f"raster + postprocess: " + " | ".join(
+                f"{r:.3f} + {p:.3f}" for r, p in path[rep]
+            ) + f" (best {best[0]:.3f} + {best[1]:.3f} = {sum(best):.3f})"
+        ))
+    phase("render", t0, (
+        f"raster launches {raster_launches} (pair_hist {hist_launches_render}); "
+        f"peak mem {render_peak:.3f} GiB"
+    ))
+
+    # -- 8. render output against references ------------------------------------
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    sampled = {}
+    for rep in REPS:
+        pick = raster[rep]["pick"]
+        hit_px = torch.nonzero(pick >= 0).cpu()
+        sel = hit_px[torch.randperm(hit_px.shape[0], generator=gen)[:100]]
+        rnd = torch.stack([torch.randint(0, HEIGHT, (100,), generator=gen),
+                           torch.randint(0, WIDTH, (100,), generator=gen)], 1)
+        yx = torch.cat([sel, rnd]).to(dev)
+        want = brute_pick(raster[rep]["scene"], yx[:, 0], yx[:, 1])
+        wrong = int((pick[yx[:, 0], yx[:, 1]] != want).sum().item())
+        if wrong:
+            raise AssertionError(f"{rep}: {wrong} of {yx.shape[0]} sampled pixels disagree with the brute force")
+        sampled[rep] = yx.shape[0]
+    chain = small_chain(dev)
+    phase("render-check", t0, (
+        f"sampled pixels vs brute force over all primitives: "
+        + ", ".join(f"{rep} {n} pixels, 0 wrong" for rep, n in sampled.items())
+        + f"; small box chain CUDA vs CPU: {chain}"
+    ))
+
+    print(json.dumps({"kernels": [
+        {
+            "name": "pair_hist",
+            "route": "cuda",
+            "source": "viamd_tpu_torch/csrc/pair_hist.cu",
+            "replaces": "viamd_tpu/ops/pallas_rdf.py:58",
+            "launches": launches,
+            "max_abs_err": err_same,
+            "ms": ms_kernel,
+            "plain_ms": ms_plain,
+            "bound_ms": hist_bound,
+            "bound_by": hist_bound_by,
+            "library_ms": None,
+        },
+        {
+            "name": "raster",
+            "route": "cuda",
+            "source": "viamd_tpu_torch/csrc/raster.cu",
+            "replaces": "viamd_tpu/render/pallas_raster.py:58",
+            "launches": raster_launches,
+            "max_abs_err": max(raster[r]["max_abs_err"] for r in REPS),
+            "ms": raster["spacefill"]["ms"],
+            "plain_ms": raster["spacefill"]["plain_ms"],
+            "bound_ms": raster["spacefill"]["bound_ms"],
+            "bound_by": raster["spacefill"]["bound_by"],
+            "library_ms": None,
+        },
+    ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

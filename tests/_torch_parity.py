@@ -39,3 +39,17 @@ def port_system(sys):
     from viamd_tpu_torch.interop import system_from_numpy
 
     return system_from_numpy(*system_fields(sys))
+
+
+def water_render_inputs(n_waters: int, seed: int, width: int, height: int,
+                        eye_dir=(0.0, 0.0, 1.6)):
+    """One render scene as numpy arrays, the same for both packages: frame 0
+    of water_box(n_waters, seed) and datagen.render_inputs (CPK colours,
+    O–H bonds, bench.py's camera for the default eye_dir), built with the
+    port's numpy copies, which the tests hold equal to the JAX package's.
+    → dict(positions, radii, colors, bonds, view, proj)."""
+    from viamd_tpu_torch.datagen import render_inputs, water_box
+
+    sys, traj = water_box(n_waters, n_frames=1, seed=seed)
+    frames, _ = traj.load_frames([0])
+    return dict(render_inputs(sys, width, height, eye_dir), positions=frames[0])

@@ -18,7 +18,9 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "viamd_tpu" or m.startswith("viamd_tpu."))
 print(len(names), bad)
-assert "viamd_tpu_torch.ops.cuda_rdf" in names, names
+for mod in ("ops.cuda_rdf", "render.camera", "render.color", "render.cuda_raster",
+            "render.raster", "render.hbao", "render.fxaa", "render.postprocess"):
+    assert "viamd_tpu_torch." + mod in names, (mod, names)
 assert not bad, bad
 """
 

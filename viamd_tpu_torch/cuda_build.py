@@ -5,7 +5,8 @@ object with a plain C interface and loaded with ctypes. The build happens at
 first use, into `_build/` beside this file (ignored by git), keyed by a hash
 of the sources and flags, so a fresh checkout builds on its first call and
 reuses the object afterwards. A missing `nvcc` or a failed build raises with
-the compiler's output; nothing is ever skipped or replaced.
+the compiler's output; nothing is ever skipped or replaced. `build` compiles
+several libraries at once, one `nvcc` process each.
 """
 
 from __future__ import annotations
@@ -50,32 +51,68 @@ def find_nvcc() -> str:
     return found
 
 
-def load_library(name: str, sources: tuple[str, ...]) -> ctypes.CDLL:
-    """Compile (once per source hash) and load `lib<name>.so` from csrc/."""
-    lib = _loaded.get(name)
-    if lib is not None:
-        return lib
+def _target(name: str, sources: tuple[str, ...]) -> tuple[Path, list[str]]:
+    """(shared object keyed by the sources' and flags' hash, its sources)."""
     paths = [CSRC / s for s in sources]
     h = hashlib.sha256("\0".join(NVCC_FLAGS).encode())
     for p in paths:
         h.update(p.read_bytes())
-    out = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
-    info = {"seconds": 0.0, "log": ""}
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so", [str(p) for p in paths]
+
+
+def build(libraries: dict[str, tuple[str, ...]]) -> None:
+    """Compile every library of {name: sources} not built yet, one `nvcc`
+    per library, all started together; records build_info[name]. Raises on
+    the first failed build, after every process has ended."""
+    pending = []
+    for name, sources in libraries.items():
+        out, paths = _target(name, sources)
+        if out.exists():
+            build_info.setdefault(name, {"seconds": 0.0, "log": ""})
+        else:
+            pending.append((name, out, paths))
+    if not pending:
+        return
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for name, out, paths in pending:
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, paths)]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        info["seconds"] = time.perf_counter() - t0
-        info["log"] = proc.stdout + proc.stderr
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *paths]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs.append((name, out, tmp, cmd, proc, time.perf_counter()))
+    failed = []
+    for name, out, tmp, cmd, proc, t0 in jobs:
+        log, _ = proc.communicate()
+        build_info[name] = {"seconds": time.perf_counter() - t0, "log": log}
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed with exit code {proc.returncode}:\n"
-                f"{' '.join(cmd)}\n{info['log']}"
-            )
-        os.replace(tmp, out)
-    lib = ctypes.CDLL(str(out))
-    _loaded[name] = lib
-    build_info[name] = info
+            failed.append(f"nvcc failed with exit code {proc.returncode}:\n"
+                          f"{' '.join(cmd)}\n{log}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def load_library(name: str, sources: tuple[str, ...]) -> ctypes.CDLL:
+    """Compile (once per source hash) and load `lib<name>.so` from csrc/."""
+    lib = _loaded.get(name)
+    if lib is None:
+        build({name: sources})
+        lib = ctypes.CDLL(str(_target(name, sources)[0]))
+        _loaded[name] = lib
     return lib
+
+
+def check_tensor(t, name: str, dtype, shape, device) -> None:
+    """Raise unless tensor `t` is what a kernel takes: on `device`, of
+    `dtype` and `shape`, contiguous."""
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")

@@ -4,7 +4,8 @@ Counterpart of viamd_tpu.datagen. `water_box` is a numpy copy (the same
 seed gives the same system and frames as the JAX package); for
 `water_box_device` the frame noise is drawn on the device with a
 `torch.Generator`, whose stream differs from JAX's threefry — compare the
-two packages on shared numpy frames, not on these.
+two packages on shared numpy frames, not on these. `render_inputs` is the
+molecule-render scene of the JAX package's benchmark for a system.
 """
 
 from __future__ import annotations
@@ -113,3 +114,29 @@ def water_box_device(
         sys.cell.basis.astype(np.float32), (n_frames, 3, 3)
     ).copy()
     return sys, DeviceTrajectory(stack, cells)
+
+
+def render_inputs(sys: System, width: int, height: int,
+                  eye_dir=(0.0, 0.0, 1.6), device=None) -> dict:
+    """bench.py's molecule-render scene for `sys`: vdW radii, CPK colours
+    and bonds, and a camera at box centre + eye_dir · box looking at the
+    centre, perspective(45°, width/height, 1, 500) — dict(radii, colors,
+    bonds, view, proj) of numpy arrays; with a `device`, radii, colours and
+    bonds (int64) are tensors on it."""
+    from viamd_tpu_torch.render.camera import look_at, perspective
+    from viamd_tpu_torch.render.color import color_atoms_cpk
+
+    box = np.asarray(sys.cell.extent(), np.float64)
+    eye = box * 0.5 + np.asarray(eye_dir, np.float64) * box[2]
+    d = dict(
+        radii=sys.radius,
+        colors=color_atoms_cpk(sys),
+        bonds=sys.bonds,
+        view=look_at(eye, box * 0.5, np.array([0.0, 1.0, 0.0])),
+        proj=perspective(np.radians(45.0), width / height, 1.0, 500.0),
+    )
+    if device is not None:
+        d["radii"] = torch.as_tensor(d["radii"], device=device)
+        d["colors"] = torch.as_tensor(d["colors"], device=device)
+        d["bonds"] = torch.as_tensor(d["bonds"], dtype=torch.int64, device=device)
+    return d

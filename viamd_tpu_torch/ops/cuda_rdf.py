@@ -18,6 +18,7 @@ import ctypes
 
 import torch
 
+from viamd_tpu_torch.cuda_build import build_info, load_library, check_tensor as _check
 from viamd_tpu_torch.ops.neighbors import build_cell_list
 from viamd_tpu_torch.ops.rdf import pair_dist_histogram_scatter_idx
 
@@ -31,15 +32,16 @@ __all__ = [
 # kernel launches since import (reset freely by callers that count a run)
 launches = 0
 
+# (library name, sources in csrc/) for cuda_build
+LIBRARY = ("pair_hist", ("pair_hist.cu",))
+
 _lib = None
 
 
 def _library():
     global _lib
     if _lib is None:
-        from viamd_tpu_torch.cuda_build import load_library
-
-        lib = load_library("pair_hist", ("pair_hist.cu",))
+        lib = load_library(*LIBRARY)
         lib.pair_hist_launch.argtypes = [ctypes.c_void_p] * 8 + [
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_float, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
@@ -54,21 +56,8 @@ def _library():
 def load_kernel() -> float:
     """Build (first call) and load the kernel library; returns the build
     seconds, 0 when an earlier build was reused."""
-    from viamd_tpu_torch.cuda_build import build_info
-
     _library()
-    return build_info["pair_hist"]["seconds"]
-
-
-def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
+    return build_info[LIBRARY[0]]["seconds"]
 
 
 def pair_hist_cells(
