@@ -26,9 +26,13 @@ compose, FXAA 3.11). Phases, one result line each:
    the kernels' launch counts set to 0 before and read after;
 5. its output against references: the per-frame RDF against the plain
    histogram, and the whole script on a small box against the CPU;
-6. raster against its plain version on the full-width frame 0, spacefill
-   and licorice: mismatches, errors, tile-list sizes, ray tests, and the
-   kernel, binning + kernel and plain times;
+6. the culled raster kernel against its unculled plain version on the
+   full-width frame 0, spacefill and licorice: mismatches, errors,
+   tile-list sizes, the ray tests of all candidates beside those an exact
+   front-to-back cull must do and those the kernel does (its walk
+   replayed), both bounds, the kernel, binning + kernel and plain times,
+   and build_scene with the depth sort against the same binning in
+   primitive order;
 7. the render path: frames 0–15, render + postprocess, three timed runs,
    launch counts set to 0 before and read after;
 8. the render output against references: sampled pixels of the full-width
@@ -41,10 +45,12 @@ line, and the JSON status line. Any failure raises (non-zero exit).
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -58,6 +64,7 @@ from viamd_tpu_torch.ops.neighbors import build_cell_list, choose_grid_r
 from viamd_tpu_torch.ops.pbc import inv_basis_of
 from viamd_tpu_torch.ops.rdf import pair_dist_histogram_scatter_idx, sqrt_rn
 from viamd_tpu_torch.render import cuda_raster, postprocess
+from viamd_tpu_torch.render import raster as raster_mod
 from viamd_tpu_torch.render.raster import (
     RasterSettings,
     build_scene,
@@ -94,19 +101,41 @@ OPS_PAIR, OPS_PAIR_HIT = 22, 1
 # raster, per (pixel, candidate): sphere dc (4), disc (3), t (4), three tests;
 # capsule da (4), dp (4), A (3), Bq (2), disc (3), t (4), sax (2), five tests.
 OPS_SPHERE, OPS_CAPSULE = 14, 27
-# once per primitive: |c|² − r² (7); p·a and |p|² − (p·a)² − r² (14)
+# once per primitive: |c|² − r² (7); p·a and |p|² − (p·a)² − r² (14); and,
+# for a front-to-back cull, the near depth: −cz − r (1); min(−qz, −(qz +
+# len·az)) − r (4)
 OPS_SPHERE_PRIM, OPS_CAPSULE_PRIM = 7, 14
+OPS_SPHERE_NEAR, OPS_CAPSULE_NEAR = 1, 4
 # per pixel: its ray dx, dy, |d|², 1/|d|² (15); per hit pixel: the normal
 # and the Phong shading (52)
 OPS_RAY, OPS_SHADE = 15, 52
+SLEEP_CYCLES = 2_000_000  # ~1 ms of the SM clock, ahead of a queued timing
+
+
+def host_ms(fn, reps: int = 20) -> float:
+    """Median host time of fn() in ms, up to its return (no synchronize
+    inside the timed span)."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t1) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
 
 
 def phase(name: str, t0: float, msg: str) -> None:
     print(f"[{name}] {msg} ({time.perf_counter() - t0:.2f} s)", flush=True)
 
 
-def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median device time of fn() in ms, from CUDA events."""
+def cuda_ms(fn, reps: int = 20, warmup: int = 3, queued: bool = False) -> float:
+    """Median time of fn() in ms, from CUDA events around the call. Where
+    fn is shorter on the device than its host code (a kernel behind its
+    wrapper's checks and allocations), the device idles inside that span;
+    `queued` puts a ~1 ms sleep kernel on the stream first, so the host
+    enqueues fn while the device sleeps and the span holds device time
+    only (for functions that do not wait on the device themselves)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -114,6 +143,8 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
         fn()
         end.record()
@@ -175,40 +206,118 @@ def compare_raster(got, want) -> dict:
                 hits=int((ppick >= 0).sum()), max_abs_err=max(depth_err, rgb_err))
 
 
-def brute_pick(scene, ys, xs) -> torch.Tensor:
-    """Pick of pixels (ys, xs) from a ray cast over EVERY primitive of the
-    scene (no tile lists), with the plain version's float32 arithmetic:
-    spheres with the centre in front, then half-capsules, nearest hit."""
-    s = scene.shading
+def rays(s, xs, ys):
+    """(dx, dy, |d|²) of pixel centres, as the kernel computes them."""
     f32 = torch.float32
-    one = torch.ones((), dtype=f32, device=ys.device)
+    one = torch.ones((), dtype=f32, device=xs.device)
     dx = ((xs.to(f32) + 0.5) * s.two_over_w - 1.0 + s.p02) * (one / s.p00)
     dy = ((ys.to(f32) + 0.5) * s.two_over_h - 1.0 + s.p12) * (one / s.p11)
-    dd = dx * dx + dy * dy + 1.0
-    dx, dy, dd = dx[:, None], dy[:, None], dd[:, None]
-    cx, cy, cz, r = scene.sph.T
+    return dx, dy, dx * dx + dy * dy + 1.0
+
+
+def sphere_hits(sph, dx, dy, dd):
+    """(t, hit) of spheres (..., 4) and rays that broadcast with them, in the
+    plain version's float32 arithmetic."""
+    cx, cy, cz, r = sph.unbind(-1)
     cc = cx * cx + cy * cy + cz * cz - r * r
     dc = dx * cx + dy * cy - cz
     disc = dc * dc - dd * cc
     t = (dc - sqrt_rn(disc.clamp_min(0.0))) * (1.0 / dd)
-    ok = (-cz > 1e-6) & (disc > 0.0) & (t > 1e-6)
+    return t, (disc > 0.0) & (t > 1e-6)
+
+
+def capsule_hits(cyl, dx, dy, dd):
+    """(t, hit) of half-capsules (..., 8), likewise."""
+    qx, qy, qz, ax, ay, az, ln, rr = cyl.unbind(-1)
+    pa = qx * ax + qy * ay + qz * az
+    cc2 = qx * qx + qy * qy + qz * qz - pa * pa - rr * rr
+    da = dx * ax + dy * ay - az
+    dp = dx * qx + dy * qy - qz
+    A = (dd - da * da).clamp_min(1e-9)
+    Bq = dp - da * pa
+    disc = Bq * Bq - A * cc2
+    t = (Bq - sqrt_rn(disc.clamp_min(0.0))) / A
+    sax = t * da - pa
+    return t, (disc > 0.0) & (t > 1e-6) & (sax >= 0.0) & (sax <= ln)
+
+
+def brute_pick(scene, ys, xs) -> torch.Tensor:
+    """Pick of pixels (ys, xs) from a ray cast over EVERY primitive of the
+    scene (no tile lists), with the plain version's float32 arithmetic:
+    spheres with the centre in front, then half-capsules, nearest hit."""
+    dx, dy, dd = (v[:, None] for v in rays(scene.shading, xs, ys))
+    t, ok = sphere_hits(scene.sph, dx, dy, dd)
+    ok &= -scene.sph[:, 2] > 1e-6
     ts, si = torch.where(ok, t, torch.full_like(t, float("inf"))).min(dim=1)
     best = torch.where(torch.isfinite(ts), scene.sph_ci[si, 1], torch.full_like(si, -1).int())
     if scene.cyl.shape[0]:
-        qx, qy, qz, ax, ay, az, ln, rr = scene.cyl.T
-        pa = qx * ax + qy * ay + qz * az
-        cc2 = qx * qx + qy * qy + qz * qz - pa * pa - rr * rr
-        da = dx * ax + dy * ay - az
-        dp = dx * qx + dy * qy - qz
-        A = (dd - da * da).clamp_min(1e-9)
-        Bq = dp - da * pa
-        disc = Bq * Bq - A * cc2
-        t = (Bq - sqrt_rn(disc.clamp_min(0.0))) / A
-        sax = t * da - pa
-        ok = (disc > 0.0) & (t > 1e-6) & (sax >= 0.0) & (sax <= ln)
+        t, ok = capsule_hits(scene.cyl, dx, dy, dd)
         tc, ci = torch.where(ok, t, torch.full_like(t, float("inf"))).min(dim=1)
         best = torch.where(tc < ts, scene.cyl_ci[ci, 1], best)
     return best
+
+
+def kernel_walk(scene, final_depth) -> dict:
+    """The kernel's culled walk replayed slot by slot with the plain
+    arithmetic, to count its work, per kind (spheres, capsules):
+    `lane_tests`, the (pixel, candidate) tests past the cull; `warp_steps`,
+    the slots that a 32-pixel warp enters while any of its pixels is live
+    (the kernel's loop runs until __all_sync says none is); `needed`, the
+    tests that any exact front-to-back cull must still do: for each pixel,
+    the candidates of its tile's lists whose near depth is ≤ its final
+    depth (the (H, W) `final_depth`, +inf where nothing is hit: then all of
+    them). Also returns the walk's (H, W) depth and pick."""
+    t_ = cuda_raster.TILE
+    W, H = scene.width, scene.height
+    dev = scene.sph.device
+    tx, ty = -(-W // t_), -(-H // t_)
+    lane = torch.arange(t_ * t_, device=dev)
+    tid = torch.arange(tx * ty, device=dev)
+    px = ((tid % tx) * t_)[:, None] + (lane % t_)[None, :]
+    py = ((tid // tx) * t_)[:, None] + (lane // t_)[None, :]
+    outside = (px >= W) | (py >= H)
+    final = torch.full((ty * t_, tx * t_), float("-inf"), device=dev)
+    final[:H, :W] = final_depth
+    final = final.reshape(ty, t_, tx, t_).transpose(1, 2).reshape(tx * ty, t_ * t_)
+    dx, dy, dd = rays(scene.shading, px, py)
+    bt = torch.full(dx.shape, 1e30, device=dev)
+    bid = torch.full(dx.shape, -1, dtype=torch.int32, device=dev)
+    ls = scene.lists
+    out = dict(lane_tests=[], warp_steps=[], needed=[])
+    for start, lst, prims, ci, near, hits in (
+        (ls.s_start, ls.s_list, scene.sph, scene.sph_ci,
+         cuda_raster.near_depth_spheres(scene.sph), sphere_hits),
+        (ls.c_start, ls.c_list, scene.cyl, scene.cyl_ci,
+         cuda_raster.near_depth_capsules(scene.cyl), capsule_hits),
+    ):
+        done = outside.clone()
+        bi = torch.full(dx.shape, -1, dtype=torch.long, device=dev)
+        cut = cuda_raster.cull_depth(near)
+        count = start[1:] - start[:-1]
+        tests = steps = needed = torch.zeros((), dtype=torch.int64, device=dev)
+        for k in range(int(count.max()) if count.numel() else 0):
+            ids, valid = cuda_raster._slot(start, lst, k)
+            valid = valid[:, None]
+            needed = needed + (valid & (near[ids][:, None] <= final)).sum()
+            steps = steps + (valid & ~done).reshape(tx * ty, -1, 32).any(-1).sum()
+            done = done | (valid & (cut[ids][:, None] > bt))
+            live = valid & ~done
+            tests = tests + live.sum()
+            t, ok = hits(prims[ids][:, None, :], dx, dy, dd)
+            win = live & ok & ((t < bt) | ((t == bt) & (ids[:, None] < bi)))
+            bt = torch.where(win, t, bt)
+            bi = torch.where(win, ids[:, None], bi)
+            bid = torch.where(win, ci[ids, 1][:, None], bid)
+        for key, v in (("lane_tests", tests), ("warp_steps", steps), ("needed", needed)):
+            out[key].append(int(v))
+
+    def image(a):
+        a = a.reshape(ty, tx, t_, t_).transpose(1, 2).reshape(ty * t_, tx * t_)
+        return a[:H, :W]
+
+    out["depth"] = image(torch.where(bid >= 0, bt, torch.full_like(bt, float("inf"))))
+    out["pick"] = image(bid)
+    return out
 
 
 def small_chain(dev) -> str:
@@ -309,7 +418,7 @@ def main() -> None:
     ms_kernel = cuda_ms(lambda: cuda_rdf.pair_hist_cells(
         xs, ids, cl.cell_start, xs, ids, cl.cell_start, basis, inv, dims,
         NBINS, R_MAX,
-    ))
+    ), queued=True)
     ms_route = cuda_ms(lambda: cuda_rdf.pair_dist_histogram_cl(
         x0, idx_o, idx_o, basis, inv, NBINS, R_MAX, dims
     ))
@@ -425,32 +534,68 @@ def main() -> None:
         per_tile = [st[1:] - st[:-1] for st in (ls.s_start, ls.c_start)]
         npix = tile_pixels(WIDTH, HEIGHT, dev)
         tests = [int((c.double() * npix).sum().item()) for c in per_tile]
+        walk = kernel_walk(scene, want[1])
+        needed = walk["needed"]
+        if not (torch.equal(walk["pick"], got[2]) and torch.equal(walk["depth"], got[1])):
+            raise AssertionError(f"{rep}: the replayed culled walk differs from the kernel")
+        busy = sum(walk["lane_tests"]) / max(32 * sum(walk["warp_steps"]), 1)
         nbytes = (scene.sph.numel() * 4 + scene.sph_ci.numel() * 4
                   + scene.cyl.numel() * 4 + scene.cyl_ci.numel() * 4
                   + (ls.s_list.numel() + ls.c_list.numel()
                      + ls.s_start.numel() + ls.c_start.numel()) * 4
                   + WIDTH * HEIGHT * 24)
-        ops = (tests[0] * OPS_SPHERE + tests[1] * OPS_CAPSULE
-               + scene.sph.shape[0] * OPS_SPHERE_PRIM + scene.cyl.shape[0] * OPS_CAPSULE_PRIM
-               + WIDTH * HEIGHT * OPS_RAY + cmp["hits"] * OPS_SHADE)
+        per_pixel = WIDTH * HEIGHT * OPS_RAY + cmp["hits"] * OPS_SHADE
+        ops_all = (tests[0] * OPS_SPHERE + tests[1] * OPS_CAPSULE
+                   + scene.sph.shape[0] * OPS_SPHERE_PRIM
+                   + scene.cyl.shape[0] * OPS_CAPSULE_PRIM + per_pixel)
+        ops = (needed[0] * OPS_SPHERE + needed[1] * OPS_CAPSULE
+               + scene.sph.shape[0] * (OPS_SPHERE_PRIM + OPS_SPHERE_NEAR)
+               + scene.cyl.shape[0] * (OPS_CAPSULE_PRIM + OPS_CAPSULE_NEAR) + per_pixel)
+        b_all_ms, b_all_by = bound(ops_all, nbytes)
         b_ms, b_by = bound(ops, nbytes)
-        ms_k = cuda_ms(lambda: render_scene(scene))
+        ms_k = cuda_ms(lambda: render_scene(scene), queued=True)
+        ms_k_call = cuda_ms(lambda: render_scene(scene))
+        ms_k_host = host_ms(lambda: render_scene(scene))
         ms_bk = cuda_ms(lambda: render_scene(build_scene(x0, *args, device=dev)))
         ms_p = cuda_ms(lambda: cuda_raster.raster_tiles_plain(*scene.raster_args()))
+        # build_scene with the depth sort, and with the binning in primitive
+        # order (the sort replaced by the identity), in turns
+        builds = {"sorted": [], "primitive order": []}
+        for order in ("sorted", "primitive order", "primitive order", "sorted"):
+            with (contextlib.nullcontext() if order == "sorted" else mock.patch.object(
+                raster_mod, "_depth_order",
+                lambda near: torch.arange(near.shape[0], device=near.device),
+            )):
+                builds[order].append(cuda_ms(lambda: build_scene(x0, *args, device=dev)))
+        near = (cuda_raster.near_depth_spheres(scene.sph), cuda_raster.near_depth_capsules(scene.cyl))
+        ms_sort = cuda_ms(lambda: [raster_mod._depth_order(n) for n in near], queued=True)
         raster[rep] = dict(cmp, ms=ms_k, binned_ms=ms_bk, plain_ms=ms_p,
-                           bound_ms=b_ms, bound_by=b_by, scene=scene,
-                           pick=got[2])
+                           bound_ms=b_ms, bound_by=b_by, bound_all_ms=b_all_ms,
+                           scene=scene, pick=got[2])
         phase("raster", t0, (
             f"{rep} {WIDTH}x{HEIGHT}, {scene.sph.shape[0]} spheres, "
             f"{scene.cyl.shape[0]} half-capsules: tile-list entries "
             f"{ls.s_list.numel()} + {ls.c_list.numel()}, largest tile list "
-            f"{int(per_tile[0].max())} + {int(per_tile[1].max())}, ray tests "
-            f"{tests[0]} + {tests[1]}; pick mismatches {cmp['pick_mismatch']} "
+            f"{int(per_tile[0].max())} + {int(per_tile[1].max())}; ray tests, all "
+            f"candidates {tests[0]} + {tests[1]}, an exact cull's {needed[0]} + "
+            f"{needed[1]} ({sum(tests) / max(sum(needed), 1):.2f}x fewer), the kernel's "
+            f"{walk['lane_tests'][0]} + {walk['lane_tests'][1]} in "
+            f"{walk['warp_steps'][0]} + {walk['warp_steps'][1]} warp steps "
+            f"({busy * 100:.1f}% of lanes busy); "
+            f"pick mismatches {cmp['pick_mismatch']} "
             f"(near-ties {cmp['ties']}), alpha mismatches {cmp['alpha_mismatch']}, "
             f"max depth err {cmp['depth_err']:.3g}, max rgb err {cmp['rgb_err']:.3g}; "
-            f"hits {cmp['hits']}; kernel {ms_k:.4f} ms, binning + kernel "
+            f"hits {cmp['hits']}; kernel {ms_k:.4f} ms (device, queued; events "
+            f"around the call {ms_k_call:.4f} ms, the wrapper's host time "
+            f"{ms_k_host:.4f} ms), binning + kernel "
             f"{ms_bk:.4f} ms, plain {ms_p:.4f} ms, plain/kernel "
-            f"{ms_p / ms_k:.1f}x; bound {b_ms:.4f} ms ({b_by}; {ops:.6g} operations)"
+            f"{ms_p / ms_k:.1f}x; bound {b_ms:.4f} ms ({b_by}; {ops:.6g} operations, "
+            f"{nbytes} bytes), bound, all candidates {b_all_ms:.4f} ms ({b_all_by}; "
+            f"{ops_all:.6g} operations); kernel at {b_ms / ms_k * 100:.1f}% of the "
+            f"bound; build_scene with the depth sort "
+            f"{' / '.join(f'{v:.4f}' for v in builds['sorted'])} ms, in primitive "
+            f"order {' / '.join(f'{v:.4f}' for v in builds['primitive order'])} ms; "
+            f"the two sorts alone {ms_sort:.4f} ms"
         ))
 
     # -- 7. the render path ----------------------------------------------------
@@ -547,6 +692,7 @@ def main() -> None:
             "plain_ms": raster["spacefill"]["plain_ms"],
             "bound_ms": raster["spacefill"]["bound_ms"],
             "bound_by": raster["spacefill"]["bound_by"],
+            "bound_all_candidates_ms": raster["spacefill"]["bound_all_ms"],
             "library_ms": None,
         },
     ]}))

@@ -39,8 +39,10 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from viamd_tpu_torch.datagen import render_inputs, water_box
 from viamd_tpu_torch.render import cuda_raster
+from viamd_tpu_torch.render import raster as raster_mod
 from viamd_tpu_torch.render.raster import (
     RasterSettings,
     _tile_boxes,
@@ -52,6 +54,17 @@ from viamd_tpu_torch.render.raster import (
 
 TILE = 16
 F32 = np.float32
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for tests that run thousands of ops on small
+    tensors: several threads per op only contend when other processes share
+    the cores (a 128×96 plain ray cast takes ~10× longer)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture
@@ -105,9 +118,10 @@ def _licorice40(size=192):
 
 
 def _water(rep, eye_dir=(0.0, 0.0, 1.6)):
-    from tests._torch_parity import water_render_inputs
-
-    d = water_render_inputs(200, 5, 128, 96, eye_dir)
+    """tests/_torch_parity.py::water_render_inputs(200, 5, 128, 96), built
+    here from the port's datagen, so the tests on the card need no JAX."""
+    sys, traj = water_box(200, n_frames=1, seed=5)
+    d = dict(render_inputs(sys, 128, 96, eye_dir), positions=traj.load_frames([0])[0][0])
     return dict(d, W=128, H=96, rep=rep,
                 bonds=None if rep == "spacefill" else d["bonds"])
 
@@ -584,24 +598,38 @@ def test_jax_pallas_tiers_at_bench_scene():
     assert np.bincount(tl[reach & small]).max() == 22 and auto_cap == 32
 
 
-def test_tile_lists():
+def test_tile_lists(monkeypatch):
     """CSR invariants of bin_primitives: offsets monotone, each tile's list
-    in primitive order, every entry inside its primitive's tile box."""
+    in ascending near depth with ties in primitive order, the same entries
+    per tile as a binning in primitive order, every entry inside its
+    primitive's tile box."""
     sc = _water("licorice")
     s = RasterSettings(width=sc["W"], height=sc["H"], rep="licorice")
     scene = build_scene(sc["positions"], sc["radii"], sc["colors"], sc["view"],
                         sc["proj"], s, sc["bonds"], device="cpu")
     tiles_x = -(-sc["W"] // TILE)
     ls = scene.lists
-    for start, lst, boxes in (
-        (ls.s_start, ls.s_list, _tile_boxes(*scene.sph.T, scene.shading, sc["W"], sc["H"])),
-        (ls.c_start, ls.c_list, None),
+    monkeypatch.setattr(raster_mod, "_depth_order", lambda near: torch.arange(near.shape[0]))
+    by_id = bin_primitives(scene.sph, scene.cyl, scene.shading, sc["W"], sc["H"])
+    monkeypatch.undo()
+    near_s = cuda_raster.near_depth_spheres(scene.sph).numpy()
+    near_c = cuda_raster.near_depth_capsules(scene.cyl).numpy()
+    for start, lst, start_id, lst_id, near, boxes in (
+        (ls.s_start, ls.s_list, by_id.s_start, by_id.s_list, near_s,
+         _tile_boxes(*scene.sph.T, scene.shading, sc["W"], sc["H"])),
+        (ls.c_start, ls.c_list, by_id.c_start, by_id.c_list, near_c, None),
     ):
         start, lst = start.numpy(), lst.numpy()
         assert start[0] == 0 and start[-1] == len(lst) and (np.diff(start) >= 0).all()
+        assert np.array_equal(start, start_id.numpy())
+        assert not np.array_equal(lst, lst_id.numpy())  # the order did change
         for t in range(len(start) - 1):
             ids = lst[start[t]:start[t + 1]]
-            assert (np.diff(ids) > 0).all()
+            ids_by_id = lst_id.numpy()[start[t]:start[t + 1]]
+            assert (np.diff(ids_by_id) > 0).all()
+            assert np.array_equal(np.sort(ids), ids_by_id)
+            dn = np.diff(near[ids])
+            assert (dn >= 0).all() and (np.diff(ids)[dn == 0] > 0).all()
             if boxes is not None and len(ids):
                 tx0, tx1, ty0, ty1 = (b.numpy()[ids] for b in boxes)
                 assert ((tx0 <= t % tiles_x) & (t % tiles_x <= tx1)
@@ -609,6 +637,227 @@ def test_tile_lists():
     assert len(ls.c_list) > 0 and len(ls.s_list) > 0
     again = bin_primitives(scene.sph, scene.cyl, scene.shading, sc["W"], sc["H"])
     assert torch.equal(again.s_list, ls.s_list) and torch.equal(again.c_list, ls.c_list)
+
+
+# -- the kernel's list order, tie rule and cull margin ------------------------------
+
+
+def _tie_scene(case):
+    """Scenes of exact ties: every atom twice (the same centre and radius
+    under two ids); a bond whose two half-capsules meet at its midpoint;
+    every bond twice."""
+    if case == "duplicate_spheres":
+        sc = _water("spacefill")
+        return dict(sc, positions=np.concatenate([sc["positions"]] * 2),
+                    radii=np.concatenate([sc["radii"]] * 2),
+                    colors=np.concatenate([sc["colors"]] * 2))
+    if case == "bond_halves":  # tilted: the second atom's half lies nearer
+        sc = _long_bond()
+        pos = np.array([[-2.8, 0.0, -1.0], [2.8, 0.0, 1.0], [-2.0, -1.5, 0.8],
+                        [2.0, -1.2, -0.6], [-1.0, 1.6, -1.5], [1.5, 1.0, 1.2]], F32)
+        return dict(sc, positions=pos, radii=np.full(6, 0.2, F32),
+                    colors=np.random.RandomState(6).rand(6, 4).astype(F32),
+                    bonds=np.array([[0, 1], [2, 3], [4, 5]], np.int32))
+    sc = _water("licorice")
+    return dict(sc, bonds=np.concatenate([sc["bonds"]] * 2))
+
+
+def _reorder(start, lst, key):
+    """Each tile's list re-sorted by key(ids) (ascending)."""
+    tile = torch.repeat_interleave(torch.arange(start.shape[0] - 1), start[1:] - start[:-1])
+    k = key(lst.long())
+    k = k - k.min() if k.numel() else k
+    order = torch.argsort(tile * (int(k.max()) + 1 if k.numel() else 1) + k, stable=True)
+    return lst[order]
+
+
+def _tie_built(case):
+    sc = _tie_scene(case)
+    kw = sc.pop("kw", {})
+    s = RasterSettings(width=sc["W"], height=sc["H"], rep=sc["rep"], **kw)
+    return sc, build_scene(sc["positions"], sc["radii"], sc["colors"], sc["view"],
+                           sc["proj"], s, sc["bonds"], device="cpu")
+
+
+@pytest.mark.parametrize("case", ["duplicate_spheres", "bond_halves", "duplicate_bonds"])
+def test_tie_rule_is_order_free(case, one_thread):
+    """The plain version on the depth-ordered lists equals, pixel for
+    pixel, the same function on the lists in primitive order (where the
+    tie rule reduces to the strict `<` in list order that it replaced) and
+    in reverse primitive order (where only the rule, not the order, can
+    keep the lower row)."""
+    sc, scene = _tie_built(case)
+    ls = scene.lists
+    args = list(scene.raster_args())
+    got = cuda_raster.raster_tiles_plain(*args)
+    lists = {}
+    for sign in (1, -1):
+        s_list = _reorder(ls.s_start, ls.s_list, lambda i: sign * i)
+        c_list = _reorder(ls.c_start, ls.c_list, lambda i: sign * i)
+        lists[sign] = (s_list, c_list)
+        args[5], args[7] = s_list, c_list
+        want = cuda_raster.raster_tiles_plain(*args)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    changed = [not torch.equal(a, b) for a, b in zip((ls.s_list, ls.c_list), lists[1])]
+    if case == "duplicate_spheres":
+        n = len(sc["positions"]) // 2
+        assert changed[0] and (got[2] >= 0).sum() > 0.2 * got[2].numel()
+        assert int(got[2].max()) < n  # the lower id of each twin wins
+    else:
+        assert changed[1] and (got[2] >= 0).any()
+
+
+def _tangent_rays(centre, r, n=256):
+    """float32 ray slopes (dx, dy) along the cone of rays tangent to a
+    sphere, and at 1 ± 10⁻ᵏ of its half-angle (k = 1..7): silhouette and
+    grazing rays."""
+    c = np.asarray(centre, np.float64)
+    ln = np.linalg.norm(c)
+    u = c / ln
+    e1 = np.cross(u, [0.0, 1.0, 0.0])
+    e1 /= np.linalg.norm(e1)
+    e2 = np.cross(u, e1)
+    half = np.arcsin(min(r / ln, 1.0))
+    phi = np.linspace(0.0, 2 * np.pi, n, endpoint=False)
+    out = []
+    for f in [1.0] + [1.0 + sg * 10.0 ** -k for k in range(1, 8) for sg in (-1, 1)]:
+        a = half * f
+        v = u * np.cos(a) + (np.cos(phi)[:, None] * e1 + np.sin(phi)[:, None] * e2) * np.sin(a)
+        out.append(v[v[:, 2] < -1e-3])
+    v = np.concatenate(out)
+    d = v[:, :2] / -v[:, 2:3]
+    return torch.tensor(d[:, 0], dtype=torch.float32), torch.tensor(d[:, 1], dtype=torch.float32)
+
+
+def _grid_rays(centre, span, n=48):
+    """float32 slopes on an n×n grid of half-width `span` about the
+    direction of `centre`."""
+    c = np.asarray(centre, np.float64)
+    g = np.linspace(-span, span, n)
+    gx, gy = np.meshgrid(g + c[0] / -c[2], g + c[1] / -c[2])
+    return torch.tensor(gx.ravel(), dtype=torch.float32), torch.tensor(gy.ravel(), dtype=torch.float32)
+
+
+def _margin_cases(case):
+    """(spheres (n, 4), half-capsules (m, 8), rays per primitive) of one
+    adversarial scene, float32."""
+    rng = np.random.RandomState(11)
+    lateral = [(0.0, 0.0), (0.74, 0.41), (1.5, -1.0), (2.5, 0.41)]
+    sph, cyl = [], []
+    if case == "silhouette":  # grazing rays at the frame's centre and corners
+        sph = [(ux * z, uy * z, -z, r) for z in (110.0, 200.0, 500.0)
+               for r in (0.1, 0.25, 1.52) for ux, uy in lateral]
+    elif case == "eye_plane":  # spheres that reach, or nearly reach, the eye plane
+        sph = [(ux * z, uy * z, -z, r) for z in (1e-3, 0.1, 0.3, 1.0)
+               for r in (0.25, 1.0, 3.0) for ux, uy in lateral]
+    elif case == "thin_far":  # licorice half-bonds, 0.25 Å, at ~200 Å
+        for z in (190.0, 200.0, 210.0):
+            for ux, uy in lateral:
+                for _ in range(6):
+                    a = rng.normal(size=3)
+                    cyl.append((ux * z, uy * z, -z, *(a / np.linalg.norm(a)), 0.48, 0.25))
+    else:  # end_on: the axis along a float32 ray, its line at 0–2 r from the eye
+        for z in (5.0, 20.0, 110.0, 200.0):
+            for ux, uy in lateral[:3]:
+                d = np.array([ux, uy, -1.0], np.float32)
+                a = (d / np.linalg.norm(d)).astype(np.float32)
+                e = np.cross(a.astype(np.float64), [0.0, 1.0, 0.0])
+                e /= np.linalg.norm(e)
+                for rho in (0.0, 0.125, 0.2475, 0.2525, 0.5):
+                    for sg in (1.0, -1.0):  # axis away from / towards the eye
+                        p0 = d * z - (a * 0.96 if sg < 0 else 0.0) + e * rho
+                        cyl.append((*p0, *(a * sg), 0.96, 0.25))
+    rays = []
+    for p in sph:
+        c, r = p[:3], p[3]
+        ts = _tangent_rays(c, r) if -c[2] > r else _grid_rays(c, 2.5, 96)
+        gr = _grid_rays(c, 1.3 * r / max(-c[2] - r, 1e-3 * -c[2]) if -c[2] > r else 2.5)
+        rays.append((torch.cat([ts[0], gr[0]]), torch.cat([ts[1], gr[1]])))
+    for q in cyl:
+        p0, a, ln, r = np.array(q[:3]), np.array(q[3:6]), q[6], q[7]
+        parts = [_tangent_rays(p0 + a * ln * f, r, 64) for f in (0.0, 0.5, 1.0)]
+        parts.append(_grid_rays(p0 + a * ln * 0.5, 3.0 * (ln + r) / -p0[2]))
+        # along the axis, a few ulps off it, and 1e-6 to 0.1 off it
+        d = a / -a[2]
+        ulps = np.arange(-6, 7) * 2.0 ** -23
+        gx, gy = np.meshgrid(d[0] * (1 + ulps) + ulps, d[1] * (1 + ulps) + ulps)
+        phi = np.linspace(0.0, 2 * np.pi, 16, endpoint=False)
+        off = np.concatenate([10.0 ** -k * np.stack([np.cos(phi), np.sin(phi)], 1)
+                              for k in range(1, 7)])
+        parts.append((torch.tensor(np.concatenate([gx.ravel(), d[0] + off[:, 0]]), dtype=torch.float32),
+                      torch.tensor(np.concatenate([gy.ravel(), d[1] + off[:, 1]]), dtype=torch.float32)))
+        rays.append(tuple(torch.cat([p_[j] for p_ in parts]) for j in (0, 1)))
+    return (torch.tensor(np.asarray(sph, np.float32).reshape(-1, 4)),
+            torch.tensor(np.asarray(cyl, np.float32).reshape(-1, 8)), rays)
+
+
+@pytest.mark.parametrize("case", ["silhouette", "eye_plane", "thin_far", "end_on"])
+def test_cull_margin(case, one_thread):
+    """Every hit that the kernel's float32 arithmetic computes (the plain
+    version's, as chip_smoke.py replays it) lies at or behind
+    cull_depth(tlo) of its primitive, so the kernel's front-to-back
+    cull, which skips a candidate once cull_depth(tlo) > the nearest hit,
+    never skips one that could have won (csrc/raster.cu's note says why;
+    this reads how close the rounding comes)."""
+    sph, cyl, rays = _margin_cases(case)
+    worst, hits, clamped = 0.0, 0, 0
+    for k, (dx, dy) in enumerate(rays):
+        dx, dy = dx[:, None], dy[:, None]
+        dd = dx * dx + dy * dy + 1.0
+        if k < sph.shape[0]:
+            prim = sph[k:k + 1]
+            t, hit = chip_smoke.sphere_hits(prim, dx, dy, dd)
+            tlo = cuda_raster.near_depth_spheres(prim)
+        else:
+            prim = cyl[k - sph.shape[0]:k - sph.shape[0] + 1]
+            t, hit = chip_smoke.capsule_hits(prim, dx, dy, dd)
+            da = dx * prim[:, 3] + dy * prim[:, 4] - prim[:, 5]
+            clamped += int((dd - da * da <= 1e-9).sum())
+            tlo = cuda_raster.near_depth_capsules(prim)
+        cut = cuda_raster.cull_depth(tlo)
+        assert (t[hit] >= cut.expand_as(t)[hit]).all(), (case, prim.tolist())
+        hits += int(hit.sum())
+        if hit.any():
+            short = float((tlo - t[hit].min()) / (tlo - cut))
+            worst = max(worst, short)
+    print(f"{case}: {hits} hits, largest shortfall below tlo {worst:.4f} of the margin, "
+          f"{clamped} rays with A clamped")
+    assert hits > 1000
+    if case == "end_on":
+        assert clamped > 0
+    if case in ("silhouette", "thin_far"):
+        assert worst > 0.0  # float32 hits do fall in front of tlo here
+
+
+@pytest.mark.parametrize("case", ["water_spacefill", "water_licorice", "frame_edges",
+                                  "duplicate_spheres", "bond_halves"])
+def test_culled_walk_matches_plain(case, one_thread):
+    """The kernel's front-to-back cull, replayed on the CPU over the lists
+    that bin_primitives sorts (chip_smoke.kernel_walk, which counts the
+    kernel's work on the card), gives the unculled plain version's picks
+    and depths at every pixel, with fewer tests than all candidates and no
+    fewer than an exact cull needs."""
+    if case.startswith("water"):
+        sc = _water(case.split("_")[1])
+    elif case == "frame_edges":
+        sc = _frame_edges()
+    else:
+        sc = _tie_scene(case)
+    kw = sc.pop("kw", {})
+    s = RasterSettings(width=sc["W"], height=sc["H"], rep=sc["rep"], **kw)
+    scene = build_scene(sc["positions"], sc["radii"], sc["colors"], sc["view"],
+                        sc["proj"], s, sc["bonds"], device="cpu")
+    _, pdep, ppick = cuda_raster.raster_tiles_plain(*scene.raster_args())
+    walk = chip_smoke.kernel_walk(scene, pdep)
+    assert torch.equal(walk["pick"], ppick) and torch.equal(walk["depth"], pdep)
+    ls = scene.lists
+    full = sum(int(((st[1:] - st[:-1]) * TILE * TILE).sum()) for st in (ls.s_start, ls.c_start))
+    tests, needed = sum(walk["lane_tests"]), sum(walk["needed"])
+    print(f"{case}: culled walk {tests} tests of {full} ({full / max(tests, 1):.2f}x fewer; "
+          f"an exact cull's {needed}), {sum(walk['warp_steps'])} warp steps")
+    assert needed <= tests < full
+    assert all(n <= t for n, t in zip(walk["needed"], walk["lane_tests"]))
 
 
 def test_camera_and_colors_match_jax(ala_system):
@@ -669,16 +918,25 @@ def test_wrapper_rejects_other_devices():
 
 
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("rep", ["spacefill", "licorice"])
-def test_kernel_matches_plain(cuda, rep):
-    """The kernel against its plain version on the card: pick, alpha and
-    depth identical (same float operations, no FMA), rgb within 1e-5
-    (powf against torch.pow)."""
-    sys, traj = water_box(600, n_frames=1, seed=3)
-    d = render_inputs(sys, 400, 240)
-    s = RasterSettings(width=400, height=240, rep=rep)
-    scene = build_scene(traj.load_frames([0])[0][0], d["radii"], d["colors"], d["view"],
-                        d["proj"], s, d["bonds"], device=cuda)
+@pytest.mark.parametrize(
+    "case", ["spacefill", "licorice", "duplicate_spheres", "bond_halves", "duplicate_bonds"],
+)
+def test_kernel_matches_plain(cuda, case):
+    """The culled kernel against its unculled plain version on the card:
+    pick, alpha and depth identical (same float operations, no FMA, the
+    same tie rule), rgb within 1e-5 (powf against torch.pow); on water
+    frames and on the tie scenes of test_tie_rule_is_order_free."""
+    if case in ("spacefill", "licorice"):
+        sys, traj = water_box(600, n_frames=1, seed=3)
+        d = render_inputs(sys, 400, 240)
+        s = RasterSettings(width=400, height=240, rep=case)
+        scene = build_scene(traj.load_frames([0])[0][0], d["radii"], d["colors"], d["view"],
+                            d["proj"], s, d["bonds"], device=cuda)
+    else:
+        sc = _tie_scene(case)
+        s = RasterSettings(width=sc["W"], height=sc["H"], rep=sc["rep"], **sc.pop("kw", {}))
+        scene = build_scene(sc["positions"], sc["radii"], sc["colors"], sc["view"],
+                            sc["proj"], s, sc["bonds"], device=cuda)
     before = cuda_raster.launches
     img, dep, pick = render_scene(scene)
     torch.cuda.synchronize()
@@ -687,7 +945,7 @@ def test_kernel_matches_plain(cuda, rep):
     assert torch.equal(pick, ppick) and torch.equal(img[..., 3], pimg[..., 3])
     assert torch.equal(dep, pdep)
     assert (img[..., :3] - pimg[..., :3]).abs().max().item() <= 1e-5
-    assert (pick >= 0).sum().item() > 0.2 * pick.numel()
+    assert (pick >= 0).sum().item() > (0.2 * pick.numel() if case != "bond_halves" else 0)
 
 
 @pytest.mark.requires_cuda

@@ -17,12 +17,21 @@ Outputs: rgba (H, W, 4) f32, view depth (H, W) f32 (+inf where nothing is
 hit), pick (H, W) int32 (-1 where nothing is hit).
 
 `raster_tiles` takes the plain version, `raster_tiles_plain`, for CPU
-tensors only; for CUDA tensors it launches the kernel or raises. Both test
-the candidates of a tile in list order, spheres then capsules, keep the
-nearest hit with a strict `<` on t, and evaluate every expression in the
-same order with correctly rounded float32 operations, so they agree
-exactly in pick, alpha and depth; rgb differs only where `powf` and
-`torch.pow` round differently.
+tensors only; for CUDA tensors it launches the kernel or raises. Both keep
+the nearest hit under one tie rule that does not depend on list order: a
+sphere replaces the current hit when t < bt, or t == bt and its row in
+`sph` is lower than the winner's; capsules come after spheres, tie among
+themselves by their row in `cyl` and need t < bt to replace a sphere. Both
+evaluate every expression in the same order with correctly rounded float32
+operations, so they agree exactly in pick, alpha and depth; rgb differs
+only where `powf` and `torch.pow` round differently.
+
+The kernel culls front to back and so needs each tile's lists in ascending
+order of the primitives' near depths (`near_depth_spheres`,
+`near_depth_capsules`; bin_primitives sorts by them). It stops testing a
+pixel's list once `cull_depth(tlo)` of the next candidate exceeds the
+pixel's nearest hit. The plain version tests every candidate, in any list
+order.
 """
 
 from __future__ import annotations
@@ -38,15 +47,28 @@ from viamd_tpu_torch.ops.rdf import sqrt_rn
 
 __all__ = [
     "TILE",
+    "CULL_ABS",
+    "CULL_REL",
     "Shading",
+    "cull_depth",
     "launches",
     "load_kernel",
+    "near_depth_capsules",
+    "near_depth_spheres",
     "raster_tiles",
     "raster_tiles_plain",
     "shading_params",
 ]
 
 TILE = 16  # pixels per screen tile side; one kernel block per tile
+
+# The cull margin (csrc/raster.cu::cull_depth): a candidate with near depth
+# tlo is skipped once tlo·(1 ∓ CULL_REL) − CULL_ABS exceeds the pixel's
+# nearest hit, so a computed hit t may fall below tlo by up to 4e-3 of the
+# depth plus 1e-3 Å without being missed (the source note says why that is
+# safe; tests/test_torch_render.py::test_cull_margin holds it).
+CULL_REL = 4e-3
+CULL_ABS = 1e-3
 
 # kernel launches since import (reset freely by callers that count a run)
 launches = 0
@@ -105,6 +127,29 @@ def load_kernel() -> float:
     return build_info[LIBRARY[0]]["seconds"]
 
 
+def near_depth_spheres(sph: torch.Tensor) -> torch.Tensor:
+    """(ns,) conservative near view depth of each sphere, −cz − r, in the
+    kernel's float32 operations."""
+    return -sph[:, 2] - sph[:, 3]
+
+
+def near_depth_capsules(cyl: torch.Tensor) -> torch.Tensor:
+    """(nc,) conservative near view depth of each half-capsule,
+    min(−z0, −z1) − r with z1 = qz + len·az, in the kernel's float32
+    operations."""
+    z1 = cyl[:, 2] + cyl[:, 6] * cyl[:, 5]
+    return torch.minimum(-cyl[:, 2], -z1) - cyl[:, 7]
+
+
+def cull_depth(tlo: torch.Tensor) -> torch.Tensor:
+    """tlo − margin(tlo) as the kernel rounds it: tlo·(1 − CULL_REL) −
+    CULL_ABS for tlo ≥ 0, tlo·(1 + CULL_REL) − CULL_ABS below; monotone in
+    tlo, so a list sorted by tlo is sorted by it too."""
+    f = lambda v: torch.tensor(np.float32(v), device=tlo.device)  # noqa: E731
+    scale = torch.where(tlo >= 0.0, f(1.0 - CULL_REL), f(1.0 + CULL_REL))
+    return tlo * scale - f(CULL_ABS)
+
+
 def _grid(width: int, height: int) -> tuple[int, int]:
     return -(-width // TILE), -(-height // TILE)
 
@@ -114,7 +159,9 @@ def raster_tiles(
     width: int, height: int, shading: Shading,
 ):
     """Ray cast every tile → (rgba, depth, pick): the kernel on CUDA, the
-    plain version on the CPU."""
+    plain version on the CPU. The kernel needs each tile's lists in
+    ascending near depth (bin_primitives' order); the plain version takes
+    any order."""
     global launches
     dev = sph.device
     if dev.type == "cpu":
@@ -170,7 +217,7 @@ def raster_tiles_plain(
     """The plain PyTorch version of csrc/raster.cu on (T, 256) pixel state:
     each tile's list padded to the longest, one slot k of every tile per
     step (the XLA engine's loop, raster.py:580-697), the kernel's tests,
-    order and shading."""
+    tie rule and shading, with no culling."""
     s = shading
     dev = sph.device
     f32 = torch.float32
@@ -196,6 +243,7 @@ def raster_tiles_plain(
     hy = torch.zeros(shape, dtype=f32, device=dev)
     hz = torch.zeros(shape, dtype=f32, device=dev)
     hr = torch.ones(shape, dtype=f32, device=dev)
+    bi = torch.full(shape, -1, dtype=torch.long, device=dev)  # winner's row
 
     k_max = int((s_start[1:] - s_start[:-1]).max()) if ntiles else 0
     for k in range(k_max):
@@ -207,8 +255,10 @@ def raster_tiles_plain(
         dc = dx * cx + dy * cy - cz
         disc = dc * dc - dd * cc
         t = (dc - sqrt_rn(disc.clamp_min(0.0))) * inv_dd
-        ok = valid[:, None] & (disc > 0.0) & (t > 1e-6) & (t < bt)
+        win = (t < bt) | ((t == bt) & (ids[:, None] < bi))
+        ok = valid[:, None] & (disc > 0.0) & (t > 1e-6) & win
         bt = torch.where(ok, t, bt)
+        bi = torch.where(ok, ids[:, None], bi)
         bid = torch.where(ok, ci[:, 1:2], bid)
         bcol = torch.where(ok, ci[:, 0:1], bcol)
         hx = torch.where(ok, cx, hx)
@@ -216,6 +266,7 @@ def raster_tiles_plain(
         hz = torch.where(ok, cz, hz)
         hr = torch.where(ok, rk, hr)
 
+    bi = torch.full(shape, -1, dtype=torch.long, device=dev)  # a sphere ties no capsule
     k_max = int((c_start[1:] - c_start[:-1]).max()) if ntiles else 0
     for k in range(k_max):
         ids, valid = _slot(c_start, c_list, k)
@@ -231,12 +282,14 @@ def raster_tiles_plain(
         disc = Bq * Bq - A * cc2
         t = (Bq - sqrt_rn(disc.clamp_min(0.0))) / A
         sax = t * da - pa
+        win = (t < bt) | ((t == bt) & (ids[:, None] < bi))
         ok = (
-            valid[:, None] & (disc > 0.0) & (t > 1e-6) & (t < bt)
+            valid[:, None] & (disc > 0.0) & (t > 1e-6) & win
             & (sax >= 0.0) & (sax <= ln)
         )
         inv = 1.0 / rr.clamp_min(1e-12)
         bt = torch.where(ok, t, bt)
+        bi = torch.where(ok, ids[:, None], bi)
         bid = torch.where(ok, ci[:, 1:2], bid)
         bcol = torch.where(ok, ci[:, 0:1], bcol)
         hx = torch.where(ok, (dx * t - qx - sax * ax) * inv, hx)

@@ -8,9 +8,10 @@ device:
    and, for licorice / ball-and-stick, the two half-capsules of every bond,
    each coloured and picked by its own atom (raster.py:746-784);
 2. `bin_primitives`: each primitive's conservative screen box → the 16×16
-   tiles it touches → per-tile CSR candidate lists (a cumsum, an expansion
-   and a stable sort by tile, so each list keeps primitive order). There is
-   no capacity: every candidate is kept;
+   tiles it touches → per-tile CSR candidate lists (a sort of the
+   primitives by near depth, a cumsum, an expansion in that order and a
+   stable sort by tile, so each list runs front to back, ties in primitive
+   order). There is no capacity: every candidate is kept;
 3. the ray cast of every tile, render/cuda_raster.py (the CUDA kernel
    csrc/raster.cu on a CUDA device, its plain version on the CPU);
 4. the image: (H, W, 4) rgba, (H, W) view depth (+inf where nothing is
@@ -34,6 +35,8 @@ from viamd_tpu_torch.ops.rdf import sqrt_rn
 from viamd_tpu_torch.render.cuda_raster import (
     TILE,
     Shading,
+    near_depth_capsules,
+    near_depth_spheres,
     raster_tiles,
     shading_params,
 )
@@ -70,7 +73,8 @@ class RasterSettings:
 @dataclass
 class TileLists:
     """Per-tile CSR candidate lists: tile i tests spheres
-    s_list[s_start[i]:s_start[i+1]], then capsules likewise."""
+    s_list[s_start[i]:s_start[i+1]], then capsules likewise; each list in
+    ascending near depth, ties in primitive order."""
 
     s_start: torch.Tensor  # (T + 1,) int32
     s_list: torch.Tensor  # (entries,) int32 sphere ids
@@ -148,21 +152,31 @@ def _box_counts(box, keep):
     return torch.where(keep, wx * wy, torch.zeros_like(wx)), wx
 
 
-def _csr(box, cnt, wx, total: int, tiles_x: int, ntiles: int):
+def _depth_order(near: torch.Tensor) -> torch.Tensor:
+    """The primitives in ascending near depth, ties in primitive order."""
+    return torch.sort(near, stable=True).indices
+
+
+def _csr(box, cnt, wx, order, total: int, tiles_x: int, ntiles: int):
+    """CSR lists of the (tile, primitive) entries of every box, the
+    primitives expanded in `order`, so that the stable sort by tile keeps
+    that order within each tile's list."""
     dev = cnt.device
     n = cnt.shape[0]
-    prim = torch.repeat_interleave(
-        torch.arange(n, device=dev), cnt, output_size=total
+    cnt_o = cnt[order]
+    run = torch.repeat_interleave(
+        torch.arange(n, device=dev), cnt_o, output_size=total
     )
-    first = torch.cumsum(cnt, 0) - cnt
-    local = torch.arange(total, device=dev) - first[prim]
+    prim = order[run]
+    first = torch.cumsum(cnt_o, 0) - cnt_o
+    local = torch.arange(total, device=dev) - first[run]
     w = wx[prim]
     tile = (box[2][prim] + local // w) * tiles_x + box[0][prim] + local % w
-    tile_sorted, order = torch.sort(tile.int(), stable=True)
+    tile_sorted, by_tile = torch.sort(tile.int(), stable=True)
     start = torch.searchsorted(
         tile_sorted, torch.arange(ntiles + 1, dtype=torch.int32, device=dev)
     ).int()
-    return start, prim[order].int()
+    return start, prim[by_tile].int()
 
 
 def bin_primitives(sph, cyl, sh: Shading, width: int, height: int) -> TileLists:
@@ -174,7 +188,10 @@ def bin_primitives(sph, cyl, sh: Shading, width: int, height: int) -> TileLists:
     Half-capsules: a capsule lies inside the convex hull of its two end
     spheres, so the union of the two end boxes bounds it; one that reaches
     the eye plane covers the whole frame, one wholly behind the eye (both
-    ends deeper than −r) is dropped. One host sync, for the two list sizes.
+    ends deeper than −r) is dropped. Each list runs in ascending near depth
+    (cuda_raster.near_depth_spheres / near_depth_capsules, which the kernel
+    recomputes to cull front to back), ties in primitive order. One host
+    sync, for the two list sizes.
     """
     tiles_x, tiles_y = -(-width // TILE), -(-height // TILE)
     ntiles = tiles_x * tiles_y
@@ -192,8 +209,10 @@ def bin_primitives(sph, cyl, sh: Shading, width: int, height: int) -> TileLists:
     front = (-p0[:, 2] + rr > 0) | (-p1[:, 2] + rr > 0)
     ccnt, cwx = _box_counts(cbox, front)
     n_s, n_c = torch.stack([scnt.sum(), ccnt.sum()]).tolist()
-    s_start, s_list = _csr(sbox, scnt, swx, n_s, tiles_x, ntiles)
-    c_start, c_list = _csr(cbox, ccnt, cwx, n_c, tiles_x, ntiles)
+    s_order = _depth_order(near_depth_spheres(sph))
+    c_order = _depth_order(near_depth_capsules(cyl))
+    s_start, s_list = _csr(sbox, scnt, swx, s_order, n_s, tiles_x, ntiles)
+    c_start, c_list = _csr(cbox, ccnt, cwx, c_order, n_c, tiles_x, ntiles)
     return TileLists(s_start, s_list, c_start, c_list)
 
 
