@@ -20,8 +20,15 @@ compose, FXAA 3.11). Phases, one result line each:
 2. the build of the hand-written CUDA kernels from csrc/ (one nvcc per
    library, sm_90a, all started together), with ptxas' registers, shared
    memory and spills;
-3. pair_hist against its plain PyTorch version at the headline shape, with
-   both times (CUDA events, median of 20);
+3. pair_hist at the headline shape, held exactly to both plain versions
+   (the all-pairs specification and `pair_hist_cells_plain`, the kernel's
+   own walk) for O–O through the half stencil and for O against every 5th
+   atom through the full one; the walk's candidate pairs (ordered before,
+   unordered now) and its sqrt count; whether `inv_basis_of` gave
+   exact-zero off-diagonals (the kernel's orthorhombic branch); the
+   kernel's device time against its bound, its wrapper's host time behind
+   a queued sleep (fails if the launch waits on the device), the route and
+   the plain times;
 4. the analysis path: warm-up, then three timed runs over all frames, with
    the kernels' launch counts set to 0 before and read after;
 5. its output against references: the per-frame RDF against the plain
@@ -83,7 +90,6 @@ N_FRAMES = 384
 CHUNK = 64
 SEED = 3
 NBINS, R_MAX = 128, 10.0
-HIST_TOL = 2  # counts per bin; totals must be equal
 WIDTH, HEIGHT = 1920, 1080
 RENDER_FRAMES = 16
 REPS = ("spacefill", "licorice")
@@ -112,12 +118,15 @@ OPS_RAY, OPS_SHADE = 15, 52
 SLEEP_CYCLES = 2_000_000  # ~1 ms of the SM clock, ahead of a queued timing
 
 
-def host_ms(fn, reps: int = 20) -> float:
+def host_ms(fn, reps: int = 20, queued: bool = False) -> float:
     """Median host time of fn() in ms, up to its return (no synchronize
-    inside the timed span)."""
+    inside the timed span). `queued` puts a ~1 ms sleep kernel on the
+    stream first: a fn that waits on the device then takes over 1 ms."""
     times = []
     for _ in range(reps):
         torch.cuda.synchronize()
+        if queued:
+            torch.cuda._sleep(SLEEP_CYCLES)
         t1 = time.perf_counter()
         fn()
         times.append((time.perf_counter() - t1) * 1e3)
@@ -161,14 +170,14 @@ def bound(ops: float, nbytes: float) -> tuple[float, str]:
 
 
 def hist_err(got: torch.Tensor, want: torch.Tensor) -> float:
-    """Max |got − want| per bin; raises unless totals are equal and every
-    bin is within HIST_TOL counts."""
+    """Max |got − want| per bin; raises unless the histograms are equal bin
+    for bin (the kernel and both plain versions compute every distance with
+    the same float operations, so no tolerance) and not empty."""
     g, w = got.double().cpu(), want.double().cpu()
-    if g.sum().item() != w.sum().item():
-        raise AssertionError(f"totals differ: {g.sum().item()} vs {w.sum().item()}")
     err = (g - w).abs().max().item()
-    if err > HIST_TOL:
-        raise AssertionError(f"bin differs by {err} > {HIST_TOL} counts")
+    if err != 0 or g.sum().item() != w.sum().item():
+        raise AssertionError(f"histograms differ: max bin err {err}, totals "
+                             f"{g.sum().item()} vs {w.sum().item()}")
     if w.sum().item() <= 0:
         raise AssertionError("empty histogram")
     return err
@@ -399,6 +408,9 @@ def main() -> None:
             torch.ones(ib.shape[0], device=dev), basis, inv, NBINS, R_MAX,
         )
 
+    # the kernel's orthorhombic branch needs exact-zero off-diagonals
+    inv_exact = bool((inv - torch.diag(torch.diagonal(inv)) == 0).all())
+    # O–O: one index tensor, so the route takes the half stencil
     h_kernel = cuda_rdf.pair_dist_histogram_cl(
         x0, idx_o, idx_o, basis, inv, NBINS, R_MAX, dims
     )
@@ -410,21 +422,30 @@ def main() -> None:
         cuda_rdf.pair_dist_histogram_cl(x0, idx_o, idx_b, basis, inv, NBINS, R_MAX, dims),
         plain(x0, idx_o, idx_b),
     )
-    # times: the kernel alone (on prebuilt cell lists), the whole cell-list
-    # route (cell list + kernel), and the plain version
+    # the kernel on prebuilt cell lists, against its own walk in plain torch
     xo = x0[idx_o]
     cl = build_cell_list(xo, box, dims)
     xs, ids = xo[cl.order].contiguous(), idx_o[cl.order].contiguous()
-    ms_kernel = cuda_ms(lambda: cuda_rdf.pair_hist_cells(
-        xs, ids, cl.cell_start, xs, ids, cl.cell_start, basis, inv, dims,
-        NBINS, R_MAX,
-    ), queued=True)
+    cells = (xs, ids, cl.cell_start, xs, ids, cl.cell_start, basis, inv, dims, NBINS, R_MAX, True)
+    work = {}
+    h_cells = cuda_rdf.pair_hist_cells(*cells)
+    err_walk = hist_err(h_cells, cuda_rdf.pair_hist_cells_plain(*cells, work=work))
+    hist_err(h_cells, h_plain)
+    # times: the kernel alone (device time), the whole cell-list route (cell
+    # list + kernel), and the all-pairs plain version
+    ms_kernel = cuda_ms(lambda: cuda_rdf.pair_hist_cells(*cells), queued=True)
+    # the main path is host-bound: the launch must not wait on the device
+    ms_host = host_ms(lambda: cuda_rdf.pair_hist_cells(*cells), queued=True)
+    if ms_host > 0.5:
+        raise AssertionError(f"pair_hist_cells took {ms_host:.4f} ms of host time "
+                             "behind a ~1 ms queued sleep: it waits on the device")
     ms_route = cuda_ms(lambda: cuda_rdf.pair_dist_histogram_cl(
         x0, idx_o, idx_o, basis, inv, NBINS, R_MAX, dims
     ))
     ms_plain = cuda_ms(lambda: plain(x0, idx_o, idx_o))
     hits = int(h_plain.sum().item())
-    # candidate pairs: every A atom against the 27-cell stencil around it
+    # ordered candidate pairs of a full-stencil walk: every A atom against
+    # the 27-cell stencil around it
     occ = (cl.cell_start[1:] - cl.cell_start[:-1]).double().reshape(dims)
     near = sum(
         torch.roll(occ, (ox, oy, oz), (0, 1, 2))
@@ -434,15 +455,23 @@ def main() -> None:
     if bool((basis != torch.diag(box)).any()):
         raise AssertionError("the operation count assumes an orthorhombic box")
     # unordered pairs of distinct atoms: the stencil holds each atom itself
-    needed = (pairs - idx_o_np.size) / 2
+    needed = (pairs - idx_o_np.size) // 2
+    if work["pairs"] != needed:
+        raise AssertionError(f"the half-stencil walk tests {work['pairs']} pairs, "
+                             f"expected {needed} unordered ones")
     nbytes_hist = xs.numel() * 4 + ids.numel() * 4 + cl.cell_start.numel() * 4 + 72 + NBINS * 4
     hist_bound, hist_bound_by = bound(needed * OPS_PAIR + hits / 2 * OPS_PAIR_HIT, nbytes_hist)
     phase("kernel", t0, (
-        f"pair_hist O-O n={idx_o_np.size} dims={dims}: candidate pairs {pairs}, "
-        f"in-range pairs {hits}, max bin err {err_same:g} (A!=B {err_ab:g}); "
-        f"kernel {ms_kernel:.4f} ms, cell list + kernel {ms_route:.4f} ms, "
-        f"plain {ms_plain:.4f} ms, plain/kernel {ms_plain / ms_kernel:.1f}x; "
-        f"bound {hist_bound:.4f} ms ({hist_bound_by}; {needed:.0f} unordered pairs)"
+        f"pair_hist O-O n={idx_o_np.size} dims={dims}: candidate pairs, ordered "
+        f"(full stencil) {pairs}, unordered (the kernel's half stencil) "
+        f"{work['pairs']}, past the sqrt reject {work['sqrt']}; in-range pairs "
+        f"{hits}; max bin err vs all-pairs {err_same:g} (A!=B {err_ab:g}), vs "
+        f"the kernel's walk {err_walk:g}; inv_basis_of off-diagonals exactly 0: "
+        f"{inv_exact}; kernel {ms_kernel:.4f} ms (device, queued), the "
+        f"wrapper's host time {ms_host:.4f} ms (behind a queued sleep), cell list + "
+        f"kernel {ms_route:.4f} ms, plain {ms_plain:.4f} ms, plain/kernel "
+        f"{ms_plain / ms_kernel:.1f}x; bound {hist_bound:.4f} ms ({hist_bound_by}), "
+        f"kernel at {hist_bound / ms_kernel * 100:.1f}% of the bound"
     ))
 
     # -- 4. the main path ----------------------------------------------------

@@ -5,139 +5,315 @@
 // plane/tile preparation around it in _pair_dist_histogram_impl). It counts
 // A→B minimum-image distances below r_max into nbins equal bins:
 //
-//   for every A cell c, every A atom i in c, every cell c' of the 27-cell
-//   stencil around c (periodic wrap), every B atom j in c':
+//   for every A atom i (in its cell c), every B atom j of the cells of the
+//   stencil around c (periodic wrap):
 //     skip i == j by global id;
 //     d = min_image(x_i − x_j)   (single fractional round, ops/pbc.py)
 //     if |d| < r_max: hist[int(|d| · nbins / r_max)] += 1
 //
-// Differences from the TPU kernel, all by design:
-//   * Ordered pairs over the full stencil, also when A == B. That is exactly
-//     the TPU kernel's half-stencil count doubled (pallas_rdf.py:975), so no
-//     symmetric mode exists. Requires min(dims) >= 3, or the periodic wrap
-//     visits a neighbour cell twice (the compiler guarantees it).
-//   * Every pair counts: the cell list is CSR (sorted order + cell_start),
-//     so there are no per-cell capacities and nothing is dropped.
-//   * Coordinates are read as given (unwrapped); the cell ids were computed
-//     from wrapped positions by the caller. The min-image makes distances
-//     independent of the stored image, and keeps the arithmetic identical
-//     to the plain PyTorch version (ops/rdf.py::min_image_dist), operation
-//     for operation; the library is built with -fmad=false for that.
+// Two walks, as ops/cuda_rdf.py::pair_hist_cells_plain repeats them:
+//   * A ≠ B (two cell lists): the full 27-cell stencil, ordered pairs, the
+//     global-id test.
+//   * symmetric (one cell list for both sides, A == B): the self cell with
+//     pairs (i, j), j > i in the cell's CSR order, plus the 13 "upper"
+//     offsets (ops/rdf.py::stencil_offsets(1, symmetric=True)[1:], the TPU
+//     kernel's half stencil) with all pairs. Each unordered pair is counted
+//     once in shared memory and the block's merge adds twice each bin.
+//     Why that equals the all-pairs plain version (which counts (i, j) and
+//     (j, i)) bit for bit: swapping i and j negates every component of d
+//     exactly; products and sums of negated operands round to the negated
+//     result (round to nearest even is symmetric), and rintf(−f) = −rintf(f);
+//     so the squared distance of (j, i) has the bits of that of (i, j). With
+//     min(dims) >= 3 (the wrapper requires it) the 27 offsets reach 27
+//     distinct cells, so each unordered cell pair is visited exactly once:
+//     from the cell for which its offset is the upper one of ±o.
 //
-// What bounds it on the H100: at the headline (33,334 O atoms in a 100 Å
-// box, 10x10x10 cells of ~33 atoms, r_max 10 Å, 128 bins) a frame has about
-// 30 M candidate pairs (27 cells x 33 x 33 per A cell) and about 4.7 M
-// in-range hits. Each candidate costs ~40 f32 operations and a sqrt, so the
-// arithmetic is ~1.2 GFLOP per frame; each hit is a shared-memory atomicAdd
-// onto one of only 128 int32 bins, and those atomics serialize when lanes of
-// a warp hit the same bin. The simple design here: one 128-thread block per
-// A cell (1,000 blocks at the headline, ~7 per SM); A and B atoms staged in
-// shared memory in chunks; threads stride over the (A atom x B atom) pairs
-// of a chunk; a per-block shared int32 histogram flushed with one global
-// atomicAdd per non-empty bin. Faster variants (per-warp histogram copies,
-// register-resident A atoms, half-stencil) are later work, once a profile
-// says where the time goes.
-
+// Every pair counts: the cell lists are CSR (sorted order + cell_start), so
+// there are no per-cell capacities and nothing is dropped. Coordinates are
+// read as given (unwrapped); the cell ids were computed from wrapped
+// positions by the caller, and the min-image makes distances independent of
+// the stored image. The arithmetic is the plain version's
+// (ops/rdf.py::min_image_sq), operation for operation, built with
+// -fmad=false, on every path that reaches a bin.
+//
+// What bounds it on the H100, and what the design does about it. At the
+// headline (33,334 O atoms in a 100 Å box, 10x10x10 cells of ~33 atoms,
+// r_max 10 Å, 128 bins) the symmetric walk tests 15.26 M unordered
+// candidates, of which 2.44 M are in range. The inputs are ~0.4 MB, so the
+// bound is the arithmetic: ~22 f32 operations per candidate, 0.005 ms at
+// the card's 67 TFLOP/s. What the kernel costs is the instructions it
+// runs per candidate, so the design keeps everything but the distance
+// out of the pair loop:
+//   * half the candidates: the half stencil above (the previous design
+//     walked all 27 cells and counted ordered pairs, 30.6 M candidates);
+//   * no block-wide barrier and no division in the pair loop: a block owns
+//     one A cell and one contiguous part of the concatenation of its
+//     stencil cells, which it stages once into shared memory (float4 x, y,
+//     z, id; one barrier; chunks of 1,024 atoms beyond that). A slice of
+//     rows = ceil(na / kAtoms) threads holds the cell's A atoms in
+//     registers, kAtoms (2) to a thread (atoms r and r + rows); the
+//     threads / rows slices walk the B positions with that stride, so each
+//     B atom is loaded once for two candidates. At 33 atoms a cell that is
+//     15 slices of 17 threads, 255 of 256 lanes busy, where one lane per A
+//     atom would leave most lanes of a second pass idle. Divisions happen
+//     once per thread;
+//   * the grid is ncells x parts blocks, parts chosen at launch so the card
+//     holds the blocks at least kWaves times over, which keeps the SMs fed
+//     to the end of the walk;
+//   * an orthorhombic branch, taken when every off-diagonal entry of basis
+//     and inv_basis is exactly 0 and the box is periodic (a block-uniform
+//     test inside the kernel, no host sync): f = d·I_kk; f −= rint(f);
+//     o = f·B_kk per axis, 15 operations where the general 3x3 form takes
+//     33. The terms it skips are exact ±0 additions and the sign of a zero
+//     vanishes in the square, so |o|² keeps its bits;
+//   * a conservative reject before the sqrt: a candidate with |o|² > s_hi
+//     is out of range without one. s_hi (ops/cuda_rdf.py::sqrt_reject_bound,
+//     computed on the host in float64) is the largest float32 whose
+//     correctly rounded sqrt is below r_max, so no bin changes;
+//   * per-warp histograms in dynamic shared memory (nbins int32 each, sized
+//     at launch), so lanes of different warps never contend for a bin of
+//     water's sharp first peak; merged once per block with one global
+//     atomicAdd per non-empty bin.
+// What remains is the instruction stream: per candidate the 15 operations
+// of d and the min-image and the 5 of |o|², three of them rints at a
+// quarter of the f32 rate; and the sqrt, the bin and the shared atomic of
+// an in-range candidate, which the whole warp steps through whenever any
+// of the 64 candidates of its step is in range: at 1 in 6, nearly always.
+//
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kAChunk = 128;
-constexpr int kBChunk = 256;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMinBlocks = 4;  // blocks an SM must hold: 64 registers a thread
+constexpr int kWaves = 2;      // blocks launched per block the card holds at once
+constexpr int kAtoms = 2;      // A atoms a thread holds
+constexpr int kStage = 1024;  // B atoms staged per pass, one float4 each
 constexpr int kMaxBins = 4096;
+// dynamic shared memory a block may take on sm_90: 227 KB less the static
+// arrays (the staging buffer and the stencil table)
+constexpr int kMaxSmem = 232448 - kStage * 16 - 55 * 4;
+constexpr int kMaxParts = 16;
+static_assert(kWarps * 4 * kMaxBins <= kMaxSmem,
+              "a histogram per warp must fit at the most bins");
 
-__global__ void __launch_bounds__(kThreads) pair_hist_kernel(
-    const float* __restrict__ xa, const int* __restrict__ ida,
-    const int* __restrict__ a_start, const float* __restrict__ xb,
-    const int* __restrict__ idb, const int* __restrict__ b_start,
-    const float* __restrict__ basis, const float* __restrict__ inv_basis,
-    int dx, int dy, int dz, int nbins, float r_max, float inv_bin,
-    int* __restrict__ hist) {
-  __shared__ int s_hist[kMaxBins];
-  __shared__ float s_ax[kAChunk], s_ay[kAChunk], s_az[kAChunk];
-  __shared__ int s_aid[kAChunk];
-  __shared__ float s_bx[kBChunk], s_by[kBChunk], s_bz[kBChunk];
-  __shared__ int s_bid[kBChunk];
+// Shared memory of a block: the staged B atoms (x, y, z, id as float bits),
+// the stencil cells' first atoms and offsets in the concatenation, and, in
+// dynamic shared memory, one histogram of nbins int32 per warp.
+__shared__ float4 g_stage[kStage];
+__shared__ int g_seg_start[27];
+__shared__ int g_seg_off[28];
+extern __shared__ int g_hist[];
 
+// |min_image(d)|², in the plain version's order of operations.
+template <bool kOrtho>
+__device__ __forceinline__ float min_image_sq(float d0, float d1, float d2,
+                                              const float (&B)[9],
+                                              const float (&I)[9], float keep) {
+  if (kOrtho) {
+    float f0 = d0 * I[0];
+    float f1 = d1 * I[4];
+    float f2 = d2 * I[8];
+    f0 = f0 - rintf(f0);
+    f1 = f1 - rintf(f1);
+    f2 = f2 - rintf(f2);
+    const float o0 = f0 * B[0];
+    const float o1 = f1 * B[4];
+    const float o2 = f2 * B[8];
+    return o0 * o0 + o1 * o1 + o2 * o2;
+  }
+  float f0 = d0 * I[0] + d1 * I[3] + d2 * I[6];
+  float f1 = d0 * I[1] + d1 * I[4] + d2 * I[7];
+  float f2 = d0 * I[2] + d1 * I[5] + d2 * I[8];
+  f0 = f0 - rintf(f0);  // round half to even, as torch/jnp.round
+  f1 = f1 - rintf(f1);
+  f2 = f2 - rintf(f2);
+  const float o0 = f0 * B[0] + f1 * B[3] + f2 * B[6] + d0 * keep;
+  const float o1 = f0 * B[1] + f1 * B[4] + f2 * B[7] + d1 * keep;
+  const float o2 = f0 * B[2] + f1 * B[5] + f2 * B[8] + d2 * keep;
+  return o0 * o0 + o1 * o1 + o2 * o2;
+}
+
+// A candidate past the reject → its bin in the per-warp histogram `wh`.
+__device__ __forceinline__ void bin_pair(float s, int* wh, int nbins,
+                                         float r_max, float inv_bin) {
+  const float dist = sqrtf(s);
+  if (dist < r_max) {
+    const int bin = (int)(dist * inv_bin);
+    if (bin < nbins) atomicAdd(&wh[bin], 1);
+  }
+}
+
+// One B atom against the thread's kAtoms A atoms; each pair whose |o|² is
+// not past the reject goes to the histogram. kSelf: j lies in the self
+// cell, where atom k pairs only with j > il[k].
+template <bool kOrtho, bool kSym, bool kSelf>
+__device__ __forceinline__ void pair_step(
+    int j, float4 b, const float (&ax)[kAtoms], const float (&ay)[kAtoms],
+    const float (&az)[kAtoms], const int (&aid)[kAtoms],
+    const int (&il)[kAtoms], const float (&B)[9], const float (&I)[9],
+    float keep, float s_hi, int* wh, int nbins, float r_max, float inv_bin) {
+  float s[kAtoms];
+#pragma unroll
+  for (int k = 0; k < kAtoms; ++k)
+    s[k] = min_image_sq<kOrtho>(ax[k] - b.x, ay[k] - b.y, az[k] - b.z, B, I,
+                                keep);
+#pragma unroll
+  for (int k = 0; k < kAtoms; ++k) {
+    const bool pair =
+        kSym ? (!kSelf || j > il[k]) : __float_as_int(b.w) != aid[k];
+    if (pair && s[k] <= s_hi) bin_pair(s[k], wh, nbins, r_max, inv_bin);
+  }
+}
+
+// One block's walk: the A atoms of its cell, kAtoms to a thread, against
+// positions [pb, pe) of the concatenated stencil cells.
+template <bool kOrtho, bool kSym>
+__device__ __forceinline__ void walk(
+    const float* __restrict__ xa, const int* __restrict__ ida, int a0, int na,
+    const float* __restrict__ xb, const int* __restrict__ idb, int nseg,
+    int pb, int pe, int* wh, const float (&B)[9], const float (&I)[9],
+    float keep, int nbins, float r_max, float inv_bin, float s_hi) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const float nan = __int_as_float(0x7fc00000);
+  for (int ac = 0; ac < na; ac += kAtoms * kThreads) {
+    // a slice is `rows` threads holding the chunk's atoms r, r + rows, ...;
+    // slices walk the B positions with stride `slices`
+    const int nac = min(kAtoms * kThreads, na - ac);
+    const int rows = (nac + kAtoms - 1) / kAtoms;
+    const int slices = kThreads / rows;
+    const int slice = tid / rows;
+    const int r = tid - slice * rows;
+    const bool active = slice < slices;
+    float ax[kAtoms], ay[kAtoms], az[kAtoms];
+    int aid[kAtoms], il[kAtoms];
+#pragma unroll
+    for (int k = 0; k < kAtoms; ++k) {
+      const int i = r + k * rows;
+      il[k] = ac + i;  // the atom's index in its cell
+      aid[k] = -1;
+      ax[k] = ay[k] = az[k] = nan;  // no atom: its |o|² is NaN, never binned
+      if (active && i < nac) {
+        const int g = a0 + ac + i;
+        ax[k] = xa[3 * g + 0];
+        ay[k] = xa[3 * g + 1];
+        az[k] = xa[3 * g + 2];
+        aid[k] = ida[g];
+      }
+    }
+    int j = pe;
+    if (active) {
+      j = pb + slice;
+      // the self cell is segment 0, in A's own order: its pairs need
+      // j > il, and il[0] is the thread's smallest
+      if (kSym && j <= il[0]) j += ((il[0] - j) / slices + 1) * slices;
+    }
+    for (int cb = pb; cb < pe; cb += kStage) {
+      const int ce = min(cb + kStage, pe);
+      __syncthreads();  // the previous chunk is consumed
+      for (int l = warp; l < nseg; l += kWarps) {
+        const int lo = max(g_seg_off[l], cb), hi = min(g_seg_off[l + 1], ce);
+        const int src0 = g_seg_start[l] - g_seg_off[l];
+        for (int p = lo + lane; p < hi; p += 32) {
+          const int src = src0 + p;
+          g_stage[p - cb] = make_float4(xb[3 * src + 0], xb[3 * src + 1],
+                                        xb[3 * src + 2], __int_as_float(idb[src]));
+        }
+      }
+      __syncthreads();
+      const int self_end = kSym ? min(ce, na) : cb;
+      for (; j < self_end; j += slices)
+        pair_step<kOrtho, kSym, true>(j, g_stage[j - cb], ax, ay, az, aid, il,
+                                      B, I, keep, s_hi, wh, nbins, r_max, inv_bin);
+      for (; j < ce; j += slices)
+        pair_step<kOrtho, kSym, false>(j, g_stage[j - cb], ax, ay, az, aid, il,
+                                       B, I, keep, s_hi, wh, nbins, r_max, inv_bin);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    pair_hist_kernel(const float* __restrict__ xa, const int* __restrict__ ida,
+                     const int* __restrict__ a_start,
+                     const float* __restrict__ xb, const int* __restrict__ idb,
+                     const int* __restrict__ b_start,
+                     const float* __restrict__ basis,
+                     const float* __restrict__ inv_basis, int dx, int dy,
+                     int dz, int nbins, int symmetric, float r_max,
+                     float inv_bin, float s_hi, int* __restrict__ hist) {
   const int cell = blockIdx.x;
   const int a0 = a_start[cell];
-  const int a1 = a_start[cell + 1];
-  if (a0 == a1) return;  // uniform across the block
+  const int na = a_start[cell + 1] - a0;
+  if (na == 0) return;  // uniform across the block
 
-  for (int b = threadIdx.x; b < nbins; b += blockDim.x) s_hist[b] = 0;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  for (int b = tid; b < kWarps * nbins; b += kThreads) g_hist[b] = 0;
+
+  const int nseg = symmetric ? 14 : 27;
+  if (warp == 0) {
+    int start = 0, cnt = 0;
+    if (lane < nseg) {
+      // self cell first, then the 13 upper offsets, then the 13 lower ones
+      const int o = (lane + 13) % 27;
+      const int cz = cell % dz;
+      const int cy = (cell / dz) % dy;
+      const int cx = cell / (dz * dy);
+      const int nx = (cx + o / 9 - 1 + dx) % dx;
+      const int ny = (cy + (o / 3) % 3 - 1 + dy) % dy;
+      const int nz = (cz + o % 3 - 1 + dz) % dz;
+      const int nc = (nx * dy + ny) * dz + nz;
+      start = b_start[nc];
+      cnt = b_start[nc + 1] - start;
+    }
+    int inc = cnt;  // inclusive scan of the counts over the warp
+#pragma unroll
+    for (int k = 1; k < 32; k <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, inc, k);
+      if (lane >= k) inc += v;
+    }
+    if (lane < nseg) {
+      g_seg_start[lane] = start;
+      g_seg_off[lane + 1] = inc;
+    }
+    if (lane == 0) g_seg_off[0] = 0;
+  }
 
   // basis / inverse basis, row-major (3, 3): row i = lattice vector i
   float B[9], I[9];
-  bool periodic = false;
+  bool periodic = false, diagonal = true;
 #pragma unroll
   for (int k = 0; k < 9; ++k) {
     B[k] = basis[k];
     I[k] = inv_basis[k];
     periodic = periodic || (B[k] != 0.0f);
+    if (k % 4 != 0) diagonal = diagonal && B[k] == 0.0f && I[k] == 0.0f;
   }
   const float keep = periodic ? 0.0f : 1.0f;  // 1 − pbc_mask(basis)
-
-  const int cz = cell % dz;
-  const int cy = (cell / dz) % dy;
-  const int cx = cell / (dz * dy);
-
-  for (int ac = a0; ac < a1; ac += kAChunk) {
-    const int na = min(kAChunk, a1 - ac);
-    __syncthreads();  // previous A chunk fully consumed; s_hist zeroed
-    for (int i = threadIdx.x; i < na; i += blockDim.x) {
-      s_ax[i] = xa[3 * (ac + i) + 0];
-      s_ay[i] = xa[3 * (ac + i) + 1];
-      s_az[i] = xa[3 * (ac + i) + 2];
-      s_aid[i] = ida[ac + i];
-    }
-    for (int o = 0; o < 27; ++o) {
-      const int nx = (cx + o / 9 - 1 + dx) % dx;
-      const int ny = (cy + (o / 3) % 3 - 1 + dy) % dy;
-      const int nz = (cz + o % 3 - 1 + dz) % dz;
-      const int nc = (nx * dy + ny) * dz + nz;
-      const int b0 = b_start[nc];
-      const int b1 = b_start[nc + 1];
-      for (int bc = b0; bc < b1; bc += kBChunk) {
-        const int nb = min(kBChunk, b1 - bc);
-        __syncthreads();  // previous B chunk fully consumed
-        for (int j = threadIdx.x; j < nb; j += blockDim.x) {
-          s_bx[j] = xb[3 * (bc + j) + 0];
-          s_by[j] = xb[3 * (bc + j) + 1];
-          s_bz[j] = xb[3 * (bc + j) + 2];
-          s_bid[j] = idb[bc + j];
-        }
-        __syncthreads();
-        const int npairs = na * nb;
-        for (int p = threadIdx.x; p < npairs; p += blockDim.x) {
-          const int i = p / nb;
-          const int j = p - i * nb;
-          if (s_aid[i] == s_bid[j]) continue;
-          const float d0 = s_ax[i] - s_bx[j];
-          const float d1 = s_ay[i] - s_by[j];
-          const float d2 = s_az[i] - s_bz[j];
-          float f0 = d0 * I[0] + d1 * I[3] + d2 * I[6];
-          float f1 = d0 * I[1] + d1 * I[4] + d2 * I[7];
-          float f2 = d0 * I[2] + d1 * I[5] + d2 * I[8];
-          f0 = f0 - rintf(f0);  // round half to even, as torch/jnp.round
-          f1 = f1 - rintf(f1);
-          f2 = f2 - rintf(f2);
-          const float o0 = f0 * B[0] + f1 * B[3] + f2 * B[6] + d0 * keep;
-          const float o1 = f0 * B[1] + f1 * B[4] + f2 * B[7] + d1 * keep;
-          const float o2 = f0 * B[2] + f1 * B[5] + f2 * B[8] + d2 * keep;
-          const float dist = sqrtf(o0 * o0 + o1 * o1 + o2 * o2);
-          if (dist < r_max) {
-            const int bin = (int)(dist * inv_bin);
-            if (bin < nbins) atomicAdd(&s_hist[bin], 1);
-          }
-        }
-      }
-    }
-  }
   __syncthreads();
-  for (int b = threadIdx.x; b < nbins; b += blockDim.x) {
-    const int v = s_hist[b];
-    if (v) atomicAdd(&hist[b], v);
+
+  // this block's part of the concatenated stencil cells
+  const int nbt = g_seg_off[nseg];
+  const int pb = (int)((long long)nbt * blockIdx.y / gridDim.y);
+  const int pe = (int)((long long)nbt * (blockIdx.y + 1) / gridDim.y);
+  if (pb == pe) return;  // uniform across the block
+  int* wh = g_hist + warp * nbins;
+#define PAIR_HIST_WALK(ORTHO, SYM)                                         \
+  walk<ORTHO, SYM>(xa, ida, a0, na, xb, idb, nseg, pb, pe, wh, B, I, keep, \
+                   nbins, r_max, inv_bin, s_hi)
+  if (periodic && diagonal) {
+    if (symmetric) PAIR_HIST_WALK(true, true);
+    else PAIR_HIST_WALK(true, false);
+  } else {
+    if (symmetric) PAIR_HIST_WALK(false, true);
+    else PAIR_HIST_WALK(false, false);
+  }
+#undef PAIR_HIST_WALK
+  __syncthreads();
+  for (int b = tid; b < nbins; b += kThreads) {
+    int v = 0;
+    for (int w = 0; w < kWarps; ++w) v += g_hist[w * nbins + b];
+    if (v) atomicAdd(&hist[b], symmetric ? 2 * v : v);
   }
 }
 
@@ -146,17 +322,41 @@ __global__ void __launch_bounds__(kThreads) pair_hist_kernel(
 extern "C" int pair_hist_max_bins() { return kMaxBins; }
 
 // Launches on `stream`; adds into `hist` (nbins int32, zeroed by the
-// caller). Returns cudaGetLastError() right after the launch.
+// caller). `symmetric`: xb/idb/b_start are the A cell list itself (the half
+// stencil). Returns cudaGetLastError() right after the launch, or an error
+// without launching.
 extern "C" int pair_hist_launch(const float* xa, const int* ida,
                                 const int* a_start, const float* xb,
                                 const int* idb, const int* b_start,
                                 const float* basis, const float* inv_basis,
                                 int dx, int dy, int dz, int nbins,
-                                float r_max, float inv_bin, int* hist,
-                                void* stream) {
+                                float r_max, float inv_bin, float s_hi,
+                                int symmetric, int* hist, void* stream) {
+  if (nbins < 1 || nbins > kMaxBins || (symmetric && xb != xa))
+    return (int)cudaErrorInvalidValue;
+  const int smem_bytes = kWarps * 4 * nbins;
+  // how many blocks the current device holds at once. Asked on every launch
+  // (host-side queries, no sync), so each device gets its own answer; the
+  // attribute is set to the most any launch takes, so concurrent launches
+  // with different nbins never undercut each other.
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      pair_hist_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kWarps * 4 * kMaxBins);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, pair_hist_kernel, kThreads, smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   const int ncells = dx * dy * dz;
-  pair_hist_kernel<<<ncells, kThreads, 0, (cudaStream_t)stream>>>(
-      xa, ida, a_start, xb, idb, b_start, basis, inv_basis, dx, dy, dz,
-      nbins, r_max, inv_bin, hist);
+  int parts = (kWaves * sms * per_sm + ncells - 1) / ncells;
+  parts = parts < 1 ? 1 : (parts > kMaxParts ? kMaxParts : parts);
+  const dim3 grid(ncells, parts);
+  pair_hist_kernel<<<grid, kThreads, smem_bytes, (cudaStream_t)stream>>>(
+      xa, ida, a_start, xb, idb, b_start, basis, inv_basis, dx, dy, dz, nbins,
+      symmetric, r_max, inv_bin, s_hi, hist);
   return (int)cudaGetLastError();
 }

@@ -1,32 +1,43 @@
 """Cell-list pair-distance histogram: the CUDA kernel's wrapper and its
-plain PyTorch version.
+plain PyTorch versions.
 
 Counterpart of viamd_tpu/ops/pallas_rdf.py (`pair_dist_histogram_pl`, whose
 Pallas kernel `_hist_kernel` is replaced by csrc/pair_hist.cu).
 
 `pair_dist_histogram_cl` is the route the compiler takes for periodic
 orthorhombic systems. On a CUDA tensor it builds the CSR cell lists
-(ops/neighbors.py) and launches the kernel; on a CPU tensor it computes the
-same histogram with the plain version, `pair_dist_histogram_scatter_idx`
-(ops/rdf.py, imported here). Any other device raises. The kernel counts
-every pair (no capacity drops), so it is held exactly to the plain version.
+(ops/neighbors.py) and launches the kernel, through the half stencil when
+one index tensor serves both sides; on a CPU tensor it computes the same
+histogram with the all-pairs plain version, `pair_dist_histogram_scatter_idx`
+(ops/rdf.py, imported here), which stays the specification. Any other
+device raises. `pair_hist_cells_plain` walks exactly the kernel's pairs on
+the kernel's inputs, to count its work and to test the walk on the CPU. The
+kernel counts every pair (no capacity drops), so it is held exactly to both.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from viamd_tpu_torch.cuda_build import build_info, load_library, check_tensor as _check
 from viamd_tpu_torch.ops.neighbors import build_cell_list
-from viamd_tpu_torch.ops.rdf import pair_dist_histogram_scatter_idx
+from viamd_tpu_torch.ops.rdf import (
+    min_image_sq,
+    pair_dist_histogram_scatter_idx,
+    sqrt_rn,
+    stencil_offsets,
+)
 
 __all__ = [
     "launches",
     "pair_dist_histogram_cl",
     "pair_dist_histogram_scatter_idx",
     "pair_hist_cells",
+    "pair_hist_cells_plain",
+    "sqrt_reject_bound",
 ]
 
 # kernel launches since import (reset freely by callers that count a run)
@@ -44,7 +55,8 @@ def _library():
         lib = load_library(*LIBRARY)
         lib.pair_hist_launch.argtypes = [ctypes.c_void_p] * 8 + [
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_float, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_float, ctypes.c_float, ctypes.c_float,
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
         ]
         lib.pair_hist_launch.restype = ctypes.c_int
         lib.pair_hist_max_bins.argtypes = []
@@ -60,6 +72,29 @@ def load_kernel() -> float:
     return build_info[LIBRARY[0]]["seconds"]
 
 
+def sqrt_reject_bound(r_max: float) -> float:
+    """The kernel's s_hi: the largest float32 s whose correctly rounded sqrt
+    is below float32(r_max), so every float32 s > s_hi has sqrtf(s) >= r_max.
+
+    In float64: with p the float32 just below r = float32(r_max), sqrt(s)
+    rounds below r exactly when s < m², m = (p + r) / 2. m has 25
+    significant bits and m² at most 50, so both are exact, and no float32
+    equals m²."""
+    r = np.float32(r_max)
+    p = np.nextafter(r, np.float32(0.0))
+    m2 = ((np.float64(p) + np.float64(r)) * 0.5) ** 2
+    s = np.float32(m2)
+    if np.float64(s) >= m2:
+        s = np.nextafter(s, np.float32(0.0))
+    return float(s)
+
+
+def _check_symmetric(xa, ida, a_start, xb, idb, b_start, symmetric):
+    if symmetric and not (xb is xa and idb is ida and b_start is a_start):
+        raise ValueError("symmetric=True walks one cell list for both sides: "
+                         "pass the same xa, ida, a_start as xb, idb, b_start")
+
+
 def pair_hist_cells(
     xa: torch.Tensor,  # (na, 3) f32, A atoms in cell order
     ida: torch.Tensor,  # (na,) int32 global ids
@@ -72,9 +107,11 @@ def pair_hist_cells(
     dims: tuple,
     nbins: int,
     r_max: float,
+    symmetric: bool = False,  # B is A's own cell list: the half stencil
 ) -> torch.Tensor:
     """Launch csrc/pair_hist.cu on CSR cell lists → (nbins,) f32 counts."""
     global launches
+    _check_symmetric(xa, ida, a_start, xb, idb, b_start, symmetric)
     dev = xa.device
     if dev.type != "cuda":
         raise ValueError(f"pair_hist_cells needs CUDA tensors, got {dev}")
@@ -100,12 +137,77 @@ def pair_hist_cells(
         xb.data_ptr(), idb.data_ptr(), b_start.data_ptr(),
         basis.data_ptr(), inv_basis.data_ptr(),
         dims[0], dims[1], dims[2], nbins, r_max, inv_bin,
+        sqrt_reject_bound(r_max), int(symmetric),
         hist.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"pair_hist kernel launch failed: CUDA error {err}")
     launches += 1
     return hist.to(torch.float32)
+
+
+def pair_hist_cells_plain(
+    xa: torch.Tensor,
+    ida: torch.Tensor,
+    a_start: torch.Tensor,
+    xb: torch.Tensor,
+    idb: torch.Tensor,
+    b_start: torch.Tensor,
+    basis: torch.Tensor,
+    inv_basis: torch.Tensor,
+    dims: tuple,
+    nbins: int,
+    r_max: float,
+    symmetric: bool = False,
+    work: dict | None = None,
+) -> torch.Tensor:
+    """`pair_hist_cells` in plain PyTorch: the kernel's walk, pair for pair,
+    on any device → (nbins,) f32 counts.
+
+    Each A atom against the cells of the stencil around its cell: with
+    `symmetric`, the self cell's atoms after it in CSR order and the 13
+    upper offsets, each unordered pair counted twice; else all 27 cells,
+    pairs of equal ids skipped. Distances as `min_image_dist` computes them,
+    the sqrt only where |o|² <= sqrt_reject_bound(r_max). `work`, when
+    given, receives the walk's counts: "pairs" (candidates walked) and
+    "sqrt" (candidates past the reject)."""
+    _check_symmetric(xa, ida, a_start, xb, idb, b_start, symmetric)
+    dev = xa.device
+    na = xa.shape[0]
+    ncells = dims[0] * dims[1] * dims[2]
+    a_st, b_st = a_start.long(), b_start.long()
+    cell = torch.repeat_interleave(
+        torch.arange(ncells, device=dev), a_st[1:] - a_st[:-1], output_size=na
+    )
+    rank = torch.arange(na, device=dev) - a_st[cell]  # index in its cell
+    c3 = (cell // (dims[1] * dims[2]), (cell // dims[2]) % dims[1], cell % dims[2])
+    s_hi = sqrt_reject_bound(r_max)
+    inv_bin = float(torch.tensor(nbins / r_max, dtype=torch.float32))
+    counts = torch.zeros(nbins, dtype=torch.int64, device=dev)
+    pairs = sqrts = 0
+    for o in stencil_offsets(1, symmetric):
+        nx, ny, nz = ((c3[k] + o[k]) % dims[k] for k in range(3))
+        nc = (nx * dims[1] + ny) * dims[2] + nz
+        lo, n = b_st[nc], b_st[nc + 1] - b_st[nc]
+        if symmetric and o == (0, 0, 0):
+            lo, n = lo + rank + 1, n - rank - 1
+        total = int(n.sum())
+        pairs += total
+        pi = torch.repeat_interleave(torch.arange(na, device=dev), n, output_size=total)
+        pj = lo[pi] + torch.arange(total, device=dev) - (torch.cumsum(n, 0) - n)[pi]
+        if not symmetric:
+            distinct = ida[pi] != idb[pj]
+            pi, pj = pi[distinct], pj[distinct]
+        s = min_image_sq([xa[pi, k] - xb[pj, k] for k in range(3)], basis, inv_basis)
+        s = s[s <= s_hi]
+        sqrts += s.shape[0]
+        dist = sqrt_rn(s)
+        bins = (dist * inv_bin).to(torch.int64)
+        bins = bins[(dist < r_max) & (bins < nbins)]
+        counts.index_add_(0, bins, torch.ones_like(bins))
+    if work is not None:
+        work.update(pairs=pairs, sqrt=sqrts)
+    return (counts * 2 if symmetric else counts).to(torch.float32)
 
 
 def pair_dist_histogram_cl(
@@ -119,7 +221,12 @@ def pair_dist_histogram_cl(
     dims: tuple,  # cell grid, cells >= r_max wide, min(dims) >= 3
 ) -> torch.Tensor:
     """A→B min-image pair-distance histogram (nbins,) f32 through a cell
-    list: the kernel on CUDA, the plain version on the CPU."""
+    list: the kernel on CUDA, the plain version on the CPU.
+
+    Each index tensor must hold distinct ids (the compiler passes a mask's
+    `indices()`). When `idx_b is idx_a` the kernel skips the pairs of an
+    atom with itself by position in its cell, where the specification skips
+    equal ids: with a repeated id the two would differ."""
     if x.device.type == "cpu":
         ones_a = torch.ones(idx_a.shape[0], dtype=torch.float32)
         ones_b = torch.ones(idx_b.shape[0], dtype=torch.float32)
@@ -138,10 +245,12 @@ def pair_dist_histogram_cl(
         return xs[cl.order].contiguous(), idx[cl.order].contiguous(), cl.cell_start
 
     xa, ida, a_start = cells(idx_a)
-    # one cell list serves both sides when the caller passes one index
-    # tensor for both (comparing contents here would wait on the device)
-    xb, idb, b_start = (xa, ida, a_start) if idx_b is idx_a else cells(idx_b)
+    # one cell list and the half stencil serve both sides when the caller
+    # passes one index tensor for both (comparing contents here would wait
+    # on the device)
+    symmetric = idx_b is idx_a
+    xb, idb, b_start = (xa, ida, a_start) if symmetric else cells(idx_b)
     return pair_hist_cells(
         xa, ida, a_start, xb, idb, b_start,
-        basis.contiguous(), inv_basis.contiguous(), dims, nbins, r_max,
+        basis.contiguous(), inv_basis.contiguous(), dims, nbins, r_max, symmetric,
     )

@@ -23,8 +23,7 @@ from viamd_tpu_torch.ops.pbc import _pbc_mask
 def stencil_offsets(radius: int, symmetric: bool = False) -> list:
     """Cell-offset stencil. `symmetric`: self-cell first + the lexicographic
     upper half — each unordered cell pair once (the JAX kernel's half
-    stencil). The CUDA kernel walks the full stencil and counts ordered
-    pairs, which equals the half-stencil count doubled."""
+    stencil, which the CUDA kernel also walks when A == B)."""
     offs = [
         (ox, oy, oz)
         for ox in range(-radius, radius + 1)
@@ -44,13 +43,20 @@ def min_image_dist(
 ) -> torch.Tensor:
     """(na, nb) minimum-image distances |min_image(xa_i − xb_j)|.
 
-    Written component by component, in exactly the order of operations of
-    csrc/pair_hist.cu (which is compiled without FMA contraction): the
-    kernel and this plain version then compute bit-identical distances, so
-    no pair crosses a bin edge or r_max in one and not the other. The
-    arithmetic is ops.pbc.min_image's single fractional round.
+    Written component by component (`min_image_sq`), in exactly the order of
+    operations of csrc/pair_hist.cu (which is compiled without FMA
+    contraction): the kernel and this plain version then compute
+    bit-identical distances, so no pair crosses a bin edge or r_max in one
+    and not the other. The arithmetic is ops.pbc.min_image's single
+    fractional round.
     """
     d = [xa[:, None, k] - xb[None, :, k] for k in range(3)]
+    return sqrt_rn(min_image_sq(d, basis, inv_basis))
+
+
+def min_image_sq(d: list, basis: torch.Tensor, inv_basis: torch.Tensor) -> torch.Tensor:
+    """|min_image(d)|² of displacements given as three broadcastable
+    component tensors, in csrc/pair_hist.cu's order of operations."""
     f = [
         d[0] * inv_basis[0, k] + d[1] * inv_basis[1, k] + d[2] * inv_basis[2, k]
         for k in range(3)
@@ -62,7 +68,7 @@ def min_image_dist(
         + d[k] * keep
         for k in range(3)
     ]
-    return sqrt_rn(o[0] * o[0] + o[1] * o[1] + o[2] * o[2])
+    return o[0] * o[0] + o[1] * o[1] + o[2] * o[2]
 
 
 def sqrt_rn(s: torch.Tensor) -> torch.Tensor:
