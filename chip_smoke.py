@@ -44,7 +44,33 @@ compose, FXAA 3.11). Phases, one result line each:
    launch counts set to 0 before and read after;
 8. the render output against references: sampled pixels of the full-width
    frames against a brute-force ray cast over every primitive, and the
-   whole chain on a small box against the CPU.
+   whole chain on a small box against the CPU;
+9. `[kernel-tri]`: pair_hist's triclinic mode at full width — the box's
+   waters moved rigidly into a rhombic dodecahedron of the same volume
+   (fractional cells, the kernel's general 3x3 min-image), O–O through the
+   half stencil and O against every 5th atom through the full one, each
+   held exactly to the all-pairs version and to the kernel's walk; the
+   walk's candidates, the kernel's device time, the route, plain and bound;
+10. `[main-tri]`: the headline script over that cell, 384 frames, its
+   basis breathing between 0.98 and 1.02 (fractional coordinates kept):
+   the routes, the grid sized from the smallest frame, frames/s of three
+   runs with the launch count set to 0 before and read after, and the
+   smallest and largest frames' `r` against the all-pairs version;
+11. `[kernel-r2]`: pair_hist's radius-2 stencil at full width, the grid of
+   rdf(O, O, 35 Å) on the box (under 3 cutoffs across: 5x5x5 cells at
+   least 17.5 Å wide, ±2 cells): O–O through the half stencil (self cell
+   and 62 upper offsets) and O against every 5th atom through all 125
+   cells, each held exactly to the all-pairs version and to the kernel's
+   walk; the walk's candidates, the kernel's device time, route, plain and
+   bound; then that script through the Evaluator (the `rdf:cell_list_r2`
+   route), its launch count set to 0 before and read after, ms per frame,
+   and frame 0's `r` against the all-pairs version;
+12. `[routes]`: the other routes — BASELINE config #1 (the reference's
+   default script on a 448-atom aperiodic poly-alanine, 500 frames, the
+   dense RDF) against the CPU; sdf(residue(1:4096), element('H'), 5 Å) on
+   the box (S·n_t = 2.7e8: the SDF cell list) in ms per frame, and that
+   route on a small box against the CPU; config #5's script on 20,001
+   atoms in frames/s, and its frames 0-7 against the CPU.
 
 Ends with a JSON line of kernel results, the `nvidia-smi` name/power-limit
 line, and the JSON status line. Any failure raises (non-zero exit).
@@ -53,6 +79,7 @@ line, and the JSON status line. Any failure raises (non-zero exit).
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -66,8 +93,16 @@ from viamd_tpu_torch import cuda_build, datagen
 from viamd_tpu_torch.datagen import water_box, water_box_device
 from viamd_tpu_torch.eval import Evaluator
 from viamd_tpu_torch.interop import trajectory_from_numpy
+from viamd_tpu_torch.io.trajectory import DeviceTrajectory
+from viamd_tpu_torch.core.unitcell import UnitCell
 from viamd_tpu_torch.ops import cuda_rdf
-from viamd_tpu_torch.ops.neighbors import build_cell_list, choose_grid_r
+from viamd_tpu_torch.ops import sdf as sdf_ops
+from viamd_tpu_torch.ops.neighbors import (
+    choose_grid,
+    choose_grid_r,
+    choose_grid_triclinic,
+    perpendicular_widths,
+)
 from viamd_tpu_torch.ops.pbc import inv_basis_of
 from viamd_tpu_torch.ops.rdf import pair_dist_histogram_scatter_idx, sqrt_rn
 from viamd_tpu_torch.render import cuda_raster, postprocess
@@ -104,6 +139,10 @@ PEAK_F32, PEAK_BYTES = 67e12, 3.35e12
 # |d|² (5), sqrt, the r_max test; per in-range pair the bin (1). With A == B
 # the histogram is symmetric, so only unordered pairs are needed.
 OPS_PAIR, OPS_PAIR_HIT = 22, 1
+# pair_hist on a triclinic cell (the general 3x3 min-image), per candidate:
+# d (3), d · inv (15), rint (3), subtract (3), · basis (15), |o|² (5), sqrt,
+# the r_max test
+OPS_PAIR_TRI = 46
 # raster, per (pixel, candidate): sphere dc (4), disc (3), t (4), three tests;
 # capsule da (4), dp (4), A (3), Bq (2), disc (3), t (4), sax (2), five tests.
 OPS_SPHERE, OPS_CAPSULE = 14, 27
@@ -116,6 +155,21 @@ OPS_SPHERE_NEAR, OPS_CAPSULE_NEAR = 1, 4
 # and the Phong shading (52)
 OPS_RAY, OPS_SHADE = 15, 52
 SLEEP_CYCLES = 2_000_000  # ~1 ms of the SM clock, ahead of a queued timing
+# a rhombic dodecahedron, rows (d, 0, 0), (0, d, 0), (d/2, d/2, d/√2)
+RHOMBIC = np.array([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0], [0.5, 0.5, 0.5**0.5]])
+BREATH = 0.02  # frame f's basis is scaled by 1 + BREATH · sin(2π f / F)
+CONFIG1 = "d1 = distance(10, 30);\nr = rdf(element('C'), element('H'), 10.0);\n"
+CONFIG5 = (
+    "d1 = distance(1, 4);\n"
+    "a1 = angle(1, 2, 3);\n"
+    "r = rdf(element('O'), element('O'), 10.0);\n"
+    "{lin, plan, iso} = shape_weights(all);\n"
+)
+CONFIG1_FRAMES, CONFIG5_WATERS, CONFIG5_FRAMES = 500, 6_667, 1_024
+# pair_hist's grid in the rhombic dodecahedron at scale 1 and at 0.98
+TRI_DIMS, TRI_GRID = (9, 9, 7), (8, 8, 7)
+# rdf(O, O, 35 Å) on the 100 Å box: under 3 cutoffs, the radius-2 grid
+R2_CUTOFF, R2_DIMS, R2_FRAMES = 35.0, (5, 5, 5), 64
 
 
 def host_ms(fn, reps: int = 20, queued: bool = False) -> float:
@@ -329,6 +383,82 @@ def kernel_walk(scene, final_depth) -> dict:
     return out
 
 
+def rhombic_dodecahedron(sys_, traj):
+    """The water box moved into a rhombic dodecahedron of the same volume,
+    its basis breathing: frame f's basis is scaled by 1 + BREATH · sin(2π
+    f / F) (1.0 at frame 0, 1.02 at F/4, 0.98 at 3F/4). Each water's O keeps
+    its fractional coordinates in the box, and its atoms their cartesian
+    offsets from it, so waters stay rigid. → (System at scale 1,
+    DeviceTrajectory, (F,) scales)."""
+    L = float(sys_.cell.basis[0, 0])
+    B = RHOMBIC * (L**3 / np.linalg.det(RHOMBIC)) ** (1.0 / 3.0)
+    F = traj.num_frames
+    scales = 1.0 + BREATH * np.sin(2.0 * np.pi * np.arange(F) / F)
+    cells = np.stack([B * s for s in scales]).astype(np.float32)
+
+    def move(x, cell):  # (..., n, 3) in the box → the cell
+        o = x[..., 0::3, :]
+        shift = (o / L) @ cell - o
+        return x + torch.repeat_interleave(shift, 3, dim=-2)
+
+    dev = traj.stack.device
+    stack = move(traj.stack, torch.as_tensor(cells, device=dev))
+    x0 = move(torch.as_tensor(sys_.coords()), torch.as_tensor(B, dtype=torch.float32)).numpy()
+    tri_sys = dataclasses.replace(
+        sys_, x=x0[:, 0].copy(), y=x0[:, 1].copy(), z=x0[:, 2].copy(),
+        cell=UnitCell.from_basis(B.astype(np.float32)),
+    )
+    return tri_sys, DeviceTrajectory(stack, cells), scales
+
+
+def all_pairs(x, ia, ib, basis, inv, r_max=R_MAX):
+    """The all-pairs plain version of pair_hist (unit weights)."""
+    ones = lambda idx: torch.ones(idx.shape[0], device=x.device)  # noqa: E731
+    return pair_dist_histogram_scatter_idx(
+        x, ia, ib, ones(ia), ones(ib), basis, inv, NBINS, r_max
+    )
+
+
+def stencil_pairs(cell_start, dims, radius: int = 1) -> int:
+    """Ordered candidate pairs that the full stencil of `radius` walks over
+    a CSR cell list: each atom against the (2·radius + 1)³ cells around its
+    own, itself included."""
+    occ = (cell_start[1:] - cell_start[:-1]).double().reshape(dims)
+    span = range(-radius, radius + 1)
+    near = sum(
+        torch.roll(occ, (ox, oy, oz), (0, 1, 2)) for ox in span for oy in span for oz in span
+    )
+    return int((occ * near).sum().item())
+
+
+def half_stencil_pairs(cell_start, dims, n, radius: int = 1) -> int:
+    """Unordered candidate pairs of distinct atoms that the half stencil
+    walks over a CSR cell list of n atoms: the full stencil's, less each
+    atom with itself, halved."""
+    return (stencil_pairs(cell_start, dims, radius) - n) // 2
+
+
+def timed_runs(ev, n_runs: int = 3) -> list:
+    """Host seconds of n_runs Evaluator runs over all frames, each ended by
+    a synchronize (EvalResult.force), after one warm-up run. → (seconds,
+    the last EvalResult)."""
+    ev.run().force()
+    return timed_runs_range(ev, None, n_runs)
+
+
+def timed_runs_range(ev, frames, n_runs: int = 3) -> list:
+    """Host seconds of n_runs Evaluator runs over `frames` (None: all),
+    each ended by a synchronize, no warm-up. → (seconds, the last
+    EvalResult)."""
+    times = []
+    for _ in range(n_runs):
+        t1 = time.perf_counter()
+        res = ev.run(frames)
+        res.force()
+        times.append(time.perf_counter() - t1)
+    return times, res
+
+
 def small_chain(dev) -> str:
     """render_molecules → execute on a 1,500-atom box at 320×240, CUDA
     against the CPU (held to the JAX package by tests/test_torch_render.py
@@ -359,6 +489,325 @@ def small_chain(dev) -> str:
         notes.append(f"{rep} raster equal (rgb {rgb:.2g}), frame within 1e-4 at "
                      f"{frac * 100:.2f}% (max {float(err.max()):.3g})")
     return "; ".join(notes)
+
+
+def kernel_tri(sys_, traj, idx_o, idx_o_np, idx_b) -> dict:
+    """Phase 9: pair_hist's triclinic mode at full width, on frame 0 (scale
+    1) of the box moved into the rhombic dodecahedron. → the kernel's
+    results and the moved system and trajectory."""
+    t0 = time.perf_counter()
+    tri_sys, tri_traj, scales = rhombic_dodecahedron(sys_, traj)
+    xt, bt = tri_traj.device_frame(0)  # scale 1
+    it = inv_basis_of(bt)
+    dims_t, _ = choose_grid_triclinic(bt.cpu().numpy(), R_MAX, idx_o_np.size, radius=1)
+    if dims_t != TRI_DIMS:
+        raise AssertionError(f"rhombic dodecahedron grid {dims_t}, expected {TRI_DIMS}")
+    h_tri = cuda_rdf.pair_dist_histogram_cl(
+        xt, idx_o, idx_o, bt, it, NBINS, R_MAX, dims_t, fractional=True
+    )
+    h_tri_plain = all_pairs(xt, idx_o, idx_o, bt, it)
+    err_tri = hist_err(h_tri, h_tri_plain)
+    err_tri_ab = hist_err(
+        cuda_rdf.pair_dist_histogram_cl(xt, idx_o, idx_b, bt, it, NBINS, R_MAX, dims_t,
+                                        fractional=True),
+        all_pairs(xt, idx_o, idx_b, bt, it),
+    )
+    # the kernel on prebuilt fractional cell lists against its walk: the half
+    # stencil (O–O) and the full one (O against every 5th atom)
+    a_cells = cuda_rdf.cell_lists(xt, idx_o, bt, it, dims_t, fractional=True)
+    b_cells = cuda_rdf.cell_lists(xt, idx_b, bt, it, dims_t, fractional=True)
+    tri_args = (*a_cells, *a_cells, bt, it, dims_t, NBINS, R_MAX, True)
+    tri_ab_args = (*a_cells, *b_cells, bt, it, dims_t, NBINS, R_MAX, False)
+    work_t, work_ab = {}, {}
+    h_cells_t = cuda_rdf.pair_hist_cells(*tri_args)
+    err_tri_walk = hist_err(h_cells_t, cuda_rdf.pair_hist_cells_plain(*tri_args, work=work_t))
+    hist_err(h_cells_t, h_tri_plain)
+    err_tri_walk_ab = hist_err(cuda_rdf.pair_hist_cells(*tri_ab_args),
+                               cuda_rdf.pair_hist_cells_plain(*tri_ab_args, work=work_ab))
+    needed_t = half_stencil_pairs(a_cells[2], dims_t, idx_o_np.size)
+    if work_t["pairs"] != needed_t:
+        raise AssertionError(f"the triclinic half-stencil walk tests {work_t['pairs']} "
+                             f"pairs, expected {needed_t}")
+    ms_kernel_tri = cuda_ms(lambda: cuda_rdf.pair_hist_cells(*tri_args), queued=True)
+    ms_route_tri = cuda_ms(lambda: cuda_rdf.pair_dist_histogram_cl(
+        xt, idx_o, idx_o, bt, it, NBINS, R_MAX, dims_t, fractional=True
+    ))
+    ms_plain_tri = cuda_ms(lambda: all_pairs(xt, idx_o, idx_o, bt, it))
+    hits_t = int(h_tri_plain.sum().item())
+    nbytes_tri = sum(a.numel() * 4 for a in a_cells) + 72 + NBINS * 4
+    tri_bound, tri_bound_by = bound(
+        needed_t * OPS_PAIR_TRI + hits_t / 2 * OPS_PAIR_HIT, nbytes_tri
+    )
+    phase("kernel-tri", t0, (
+        f"pair_hist triclinic, rhombic dodecahedron d={float(bt[0, 0]):.3f} A, O-O "
+        f"n={idx_o_np.size} dims={dims_t} ({idx_o_np.size / np.prod(dims_t):.1f} O a "
+        f"cell): candidates, unordered (half stencil) {work_t['pairs']}, past the sqrt "
+        f"reject {work_t['sqrt']}; O vs every 5th atom (full stencil) {work_ab['pairs']}; "
+        f"in-range pairs {hits_t}; max bin err vs all-pairs {err_tri:g} (A!=B "
+        f"{err_tri_ab:g}), vs the kernel's walk {err_tri_walk:g} (A!=B "
+        f"{err_tri_walk_ab:g}); kernel {ms_kernel_tri:.4f} ms (device, queued), cell "
+        f"list + kernel {ms_route_tri:.4f} ms, plain {ms_plain_tri:.4f} ms, plain/kernel "
+        f"{ms_plain_tri / ms_kernel_tri:.1f}x; bound {tri_bound:.4f} ms ({tri_bound_by}; "
+        f"{OPS_PAIR_TRI} operations a candidate), kernel at "
+        f"{tri_bound / ms_kernel_tri * 100:.1f}% of the bound"
+    ))
+    return dict(sys=tri_sys, traj=tri_traj, scales=scales, dims=dims_t, err=err_tri,
+                ms=ms_kernel_tri, plain_ms=ms_plain_tri, bound_ms=tri_bound,
+                bound_by=tri_bound_by)
+
+
+def main_tri(dev, tri, idx_o) -> int:
+    """Phase 10: the headline script over the breathing rhombic
+    dodecahedron, the launch count set to 0 just before and read just
+    after. → pair_hist's launches."""
+    tri_sys, tri_traj, scales, dims_t = tri["sys"], tri["traj"], tri["scales"], tri["dims"]
+    t0 = time.perf_counter()
+    cuda_rdf.launches = 0
+    compiled_t = compile_script(HEADLINE, tri_sys, dev)
+    ev_t = Evaluator(compiled_t, tri_traj, chunk=CHUNK)
+    fit = ev_t.script  # the script on the grids sized for this trajectory
+    if fit.routes != ["rdf:cell_list_triclinic", "sdf:pairs"]:
+        raise AssertionError(fit.routes)
+    widths = perpendicular_widths(tri_traj.cells.cpu().numpy()).min(axis=0)
+    grid_t = fit.grids[0].dims
+    if grid_t != TRI_GRID:
+        raise AssertionError(f"breathing-box grid {grid_t}, expected {TRI_GRID} from the "
+                             f"smallest frame's widths {widths}")
+    times_t, res_t = timed_runs(ev_t)
+    launches_tri = cuda_rdf.launches  # read just after the main path
+    if launches_tri < 4 * N_FRAMES:
+        raise AssertionError(f"pair_hist launched {launches_tri} times over the "
+                             f"triclinic main path, expected >= {4 * N_FRAMES}")
+    r_sum_t = float(res_t.distributions["r"].sum())
+    v_sum_t = float(res_t.volumes["v"].sum())
+    if not (r_sum_t > 0 and v_sum_t > 0 and np.isfinite(res_t.temporal["iso"]).all()):
+        raise AssertionError((r_sum_t, v_sum_t))
+    f_small, f_large = int(np.argmin(scales)), int(np.argmax(scales))
+    errs_t = []
+    for f in (f_small, f_large):
+        x, b = tri_traj.device_frame(f)
+        i = inv_basis_of(b)
+        _, acc = fit.frame_fn(x, b, i)
+        errs_t.append(hist_err(acc["r"], all_pairs(x, idx_o, idx_o, b, i)))
+    fps_t = [N_FRAMES / t for t in times_t]
+    phase("main-tri", t0, (
+        f"{tri_sys.natoms} atoms x {N_FRAMES} frames in the breathing rhombic "
+        f"dodecahedron (scale {scales.min():.4f}-{scales.max():.4f}), routes "
+        f"{fit.routes}, grid {grid_t} from the smallest perpendicular widths "
+        f"{np.round(widths, 3).tolist()} A (frame 0's grid {dims_t}): frames/s "
+        f"{' '.join(f'{f:.1f}' for f in fps_t)} (best {max(fps_t):.1f}); r-sum "
+        f"{r_sum_t:.6g} v-sum {v_sum_t:.6g}; pair_hist launches {launches_tri}; "
+        f"per-frame r vs all-pairs, smallest frame {f_small} / largest {f_large}: "
+        f"max bin err {max(errs_t):g}"
+    ))
+    return launches_tri
+
+
+def kernel_r2(dev, sys_, traj, idx_o, idx_b) -> dict:
+    """Phase 11: pair_hist's radius-2 stencil at full width on frame 0 of
+    the box, then rdf(O, O, 35 Å) through the Evaluator, the launch count
+    set to 0 just before and read just after. → the kernel's results."""
+    t0 = time.perf_counter()
+    n_o = idx_o.shape[0]
+    x0, basis = traj.device_frame(0)
+    inv = inv_basis_of(basis)
+    dims, _ = choose_grid(sys_.cell.extent(), R2_CUTOFF, n_o)
+    if dims != R2_DIMS or choose_grid_r(sys_.cell.extent(), R2_CUTOFF, n_o)[0] != (2, 2, 2):
+        raise AssertionError(f"rdf at {R2_CUTOFF} A: grid {dims}, expected {R2_DIMS}")
+    h_route = cuda_rdf.pair_dist_histogram_cl(
+        x0, idx_o, idx_o, basis, inv, NBINS, R2_CUTOFF, dims, radius=2
+    )
+    h_plain = all_pairs(x0, idx_o, idx_o, basis, inv, R2_CUTOFF)
+    err = hist_err(h_route, h_plain)
+    err_ab = hist_err(
+        cuda_rdf.pair_dist_histogram_cl(x0, idx_o, idx_b, basis, inv, NBINS, R2_CUTOFF,
+                                        dims, radius=2),
+        all_pairs(x0, idx_o, idx_b, basis, inv, R2_CUTOFF),
+    )
+    # on prebuilt cell lists against the kernel's walk: the half stencil
+    # (O–O) and the full one (O against every 5th atom)
+    a_cells = cuda_rdf.cell_lists(x0, idx_o, basis, inv, dims)
+    b_cells = cuda_rdf.cell_lists(x0, idx_b, basis, inv, dims)
+    args = (*a_cells, *a_cells, basis, inv, dims, NBINS, R2_CUTOFF, True, 2)
+    args_ab = (*a_cells, *b_cells, basis, inv, dims, NBINS, R2_CUTOFF, False, 2)
+    work, work_ab = {}, {}
+    h_cells = cuda_rdf.pair_hist_cells(*args)
+    err_walk = hist_err(h_cells, cuda_rdf.pair_hist_cells_plain(*args, work=work))
+    hist_err(h_cells, h_plain)
+    err_walk_ab = hist_err(cuda_rdf.pair_hist_cells(*args_ab),
+                           cuda_rdf.pair_hist_cells_plain(*args_ab, work=work_ab))
+    needed = half_stencil_pairs(a_cells[2], dims, n_o, radius=2)
+    if work["pairs"] != needed:
+        raise AssertionError(f"the radius-2 half-stencil walk tests {work['pairs']} "
+                             f"pairs, expected {needed}")
+    if bool((basis != torch.diag(torch.diagonal(basis))).any()):
+        raise AssertionError("the operation count assumes an orthorhombic box")
+    ms_kernel = cuda_ms(lambda: cuda_rdf.pair_hist_cells(*args), queued=True)
+    ms_route = cuda_ms(lambda: cuda_rdf.pair_dist_histogram_cl(
+        x0, idx_o, idx_o, basis, inv, NBINS, R2_CUTOFF, dims, radius=2
+    ))
+    ms_plain = cuda_ms(lambda: all_pairs(x0, idx_o, idx_o, basis, inv, R2_CUTOFF),
+                       reps=3, warmup=1)
+    hits = int(h_plain.sum().item())
+    nbytes = sum(a.numel() * 4 for a in a_cells) + 72 + NBINS * 4
+    r2_bound, r2_bound_by = bound(needed * OPS_PAIR + hits / 2 * OPS_PAIR_HIT, nbytes)
+    # the script through the Evaluator
+    src = f"r = rdf(element('O'), element('O'), {R2_CUTOFF});"
+    cs = compile_script(src, sys_, dev)
+    ev = Evaluator(cs, traj, chunk=16)
+    g = ev.script.grids[0]
+    if cs.routes != ev.script.routes or ev.script.routes != ["rdf:cell_list_r2"] \
+            or (g.dims, g.radius) != (R2_DIMS, 2):
+        raise AssertionError((cs.routes, ev.script.routes, g))
+    ev.run(range(16)).force()  # warm-up
+    cuda_rdf.launches = 0
+    times, res = timed_runs_range(ev, range(R2_FRAMES))
+    launches = cuda_rdf.launches  # read just after the main path
+    if launches < 3 * R2_FRAMES:
+        raise AssertionError(f"pair_hist launched {launches} times over the radius-2 "
+                             f"path, expected >= {3 * R2_FRAMES}")
+    _, acc = ev.script.frame_fn(x0, basis, inv)
+    err_frame = hist_err(acc["r"], h_plain)
+    r_sum = float(res.distributions["r"].sum())
+    if not r_sum > 0:
+        raise AssertionError("empty radius-2 rdf")
+    ms_frame = [t * 1e3 / R2_FRAMES for t in times]
+    phase("kernel-r2", t0, (
+        f"pair_hist radius 2, rdf(O, O, {R2_CUTOFF:g} A) n={n_o} dims={dims} "
+        f"({n_o / np.prod(dims):.1f} O a cell): candidates, unordered (half stencil, "
+        f"63 cells) {work['pairs']}, past the sqrt reject {work['sqrt']}; O vs every "
+        f"5th atom (125 cells) {work_ab['pairs']}; in-range pairs {hits}; max bin err "
+        f"vs all-pairs {err:g} (A!=B {err_ab:g}), vs the kernel's walk {err_walk:g} "
+        f"(A!=B {err_walk_ab:g}); kernel {ms_kernel:.4f} ms (device, queued), cell "
+        f"list + kernel {ms_route:.4f} ms, plain {ms_plain:.4f} ms, plain/kernel "
+        f"{ms_plain / ms_kernel:.1f}x; bound {r2_bound:.4f} ms ({r2_bound_by}), kernel "
+        f"at {r2_bound / ms_kernel * 100:.1f}% of the bound | the script ({ev.script.routes}, "
+        f"grid {g.dims}, radius {g.radius}), frames 0-{R2_FRAMES - 1}: ms/frame "
+        f"{' '.join(f'{m:.3f}' for m in ms_frame)} (best {min(ms_frame):.3f}); r-sum "
+        f"{r_sum:.6g}; pair_hist launches {launches}; frame 0's r vs all-pairs max bin "
+        f"err {err_frame:g}"
+    ))
+    return dict(launches=launches, err=err, ms=ms_kernel, plain_ms=ms_plain,
+                bound_ms=r2_bound, bound_by=r2_bound_by)
+
+
+def other_routes(dev, sys_, traj) -> None:
+    """Phase 12: config #1 against the CPU, the SDF cell list on the box,
+    that SDF route on a small box against the CPU, config #5 and its frames
+    0-7 against the CPU."""
+    t0 = time.perf_counter()
+    # BASELINE config #1: the reference's default script, aperiodic, dense
+    pa_sys, pa_traj = datagen.polyala_helix(64, n_frames=CONFIG1_FRAMES)
+    pa_frames, pa_cells = pa_traj.load_frames(range(CONFIG1_FRAMES))
+    out1 = {}
+    for d in ("cpu", dev):
+        cs = compile_script(CONFIG1, pa_sys, d)
+        if cs.routes != ["rdf:dense"]:
+            raise AssertionError(cs.routes)
+        ev1 = Evaluator(cs, trajectory_from_numpy(pa_frames, pa_cells, d), chunk=50)
+        out1[str(d)] = timed_runs(ev1, 3 if d == dev else 1)
+    times1, res1 = out1[str(dev)]
+    res1_cpu = out1["cpu"][1]
+    err1 = hist_err(torch.as_tensor(res1.distributions["r"]),
+                    torch.as_tensor(res1_cpu.distributions["r"]))
+    d1_err = float(np.abs(res1.temporal["d1"] - res1_cpu.temporal["d1"]).max())
+    if d1_err > 1e-5:
+        raise AssertionError(f"config #1 d1 differs from the CPU by {d1_err}")
+    fps1 = [CONFIG1_FRAMES / t for t in times1]
+    # sdf over 4,096 water residues: S·n_t = 2.7e8, the SDF cell list
+    src_cl = "v = sdf(residue(1:4096), element('H'), 5.0);"
+    t1 = time.perf_counter()
+    cs_cl = compile_script(src_cl, sys_, dev)
+    t_compile_cl = time.perf_counter() - t1
+    ev_cl = Evaluator(cs_cl, traj, chunk=8)
+    if cs_cl.routes != ["sdf:cell_list"] or ev_cl.script.routes != cs_cl.routes:
+        raise AssertionError((cs_cl.routes, ev_cl.script.routes))
+    site = ev_cl.script.grids[0]
+    ev_cl.run(range(1)).force()
+    t1 = time.perf_counter()
+    r_cl = ev_cl.run(range(8))
+    v_cl = float(r_cl.volumes["v"].sum())
+    ms_cl = (time.perf_counter() - t1) * 1e3 / 8
+    # that route on a small box, CUDA against the CPU
+    # on the box's ideal waters: in a jittered frame the float32 closed-form
+    # Kabsch of a few 3-atom waters is ill-conditioned (4 of these 512 turn
+    # by up to 0.38 against float64), and the card and the CPU round those
+    # differently (ROADMAP queue 3)
+    sm_sys, _ = water_box(3_000, n_frames=1, seed=SEED)
+    sm_x = sm_sys.coords()
+    structs = [np.arange(3 * k, 3 * k + 3) for k in range(512)]
+    sidx, sw, srefc = sdf_ops.make_structure_inputs(structs, sm_sys.mass, sm_x)
+    tw = (sm_sys.element == 1).astype(np.float32)
+    idx_t = np.nonzero(tw)[0]
+    sm_basis = sm_sys.cell.basis
+    grid_sm = sdf_ops.sdf_cell_grid(perpendicular_widths(sm_basis)[0], 4.0,
+                                    sm_x[idx_t] / np.diag(sm_basis), False)
+    sm_box = np.diag(sm_basis)
+    sm_compact = sdf_ops.sdf_compact_capacity(
+        len(structs), idx_t.size, sm_box, 4.0, 64,
+        support_count=sdf_ops.sdf_frame0_support_count(
+            sm_x[idx_t], sm_x, sidx, sw, srefc, sm_box, 4.0, 64),
+    )
+    v_sm = {}
+    for d in ("cpu", dev):
+        t = lambda a: torch.as_tensor(np.asarray(a), device=d)  # noqa: E731
+        v_sm[str(d)] = sdf_ops.sdf_accumulate_cl(
+            t(sm_x), t(tw), t(sidx).long(), t(sw), t(srefc), 4.0, 64, t(sm_basis),
+            inv_basis_of(t(sm_basis)), t(idx_t).long(), grid_sm[0], grid_sm[1],
+            t(grid_sm[2]).long(), compact_cap=sm_compact,
+        ).cpu().numpy()
+    # the card's Kabsch and min-image round differently from the CPU's: a
+    # voxel moves by up to ~1e-5 of the grid's maximum (tests/test_torch_sdf_routes.py)
+    np.testing.assert_allclose(v_sm[str(dev)], v_sm["cpu"], rtol=1e-4,
+                               atol=2e-5 * np.abs(v_sm["cpu"]).max())
+    if not v_sm["cpu"].sum() > 0:
+        raise AssertionError("empty small-box SDF")
+    # BASELINE config #5's script on 20,001 atoms
+    s5_sys, s5_traj = water_box_device(CONFIG5_WATERS, n_frames=CONFIG5_FRAMES,
+                                       seed=SEED, device=dev)
+    cs5 = compile_script(CONFIG5, s5_sys, dev)
+    if cs5.routes != ["rdf:cell_list"]:
+        raise AssertionError(cs5.routes)
+    ev5 = Evaluator(cs5, s5_traj, chunk=128)
+    times5, res5 = timed_runs(ev5)
+    fps5 = [CONFIG5_FRAMES / t for t in times5]
+    for k in ("d1", "a1", "iso"):
+        if not np.isfinite(res5.temporal[k]).all():
+            raise AssertionError(k)
+    # its frames 0-7 on CUDA against the CPU (held to the JAX package by
+    # tests/test_torch_geometry.py): r exact, d1 within 1e-5 Å, a1 within
+    # 1e-4 rad (in degrees), the shape weights within 1e-5
+    res5_gpu = ev5.run(range(8))
+    frames5 = s5_traj.stack[:8].cpu().numpy()
+    cells5 = s5_traj.cells[:8].cpu().numpy()
+    res5_cpu = Evaluator(compile_script(CONFIG5, s5_sys, "cpu"),
+                         trajectory_from_numpy(frames5, cells5, "cpu"), chunk=8).run()
+    err5 = hist_err(torch.as_tensor(res5_gpu.distributions["r"]),
+                    torch.as_tensor(res5_cpu.distributions["r"]))
+    diff5 = {}
+    for k, tol in (("d1", 1e-5), ("a1", 1e-4 * 57.3), ("lin", 1e-5), ("plan", 1e-5),
+                   ("iso", 1e-5)):
+        got, want = res5_gpu.temporal[k], res5_cpu.temporal[k]
+        if got.shape != (8, 1) or want.shape != (8, 1):
+            raise AssertionError((k, got.shape, want.shape))
+        diff5[k] = float(np.abs(got - want).max())
+        if not diff5[k] <= tol:
+            raise AssertionError(f"config #5 {k} differs from the CPU by {diff5[k]} (tol {tol})")
+    phase("routes", t0, (
+        f"config #1 ({pa_sys.natoms} atoms, aperiodic, {CONFIG1_FRAMES} frames, "
+        f"{cs.routes}): frames/s {' '.join(f'{f:.1f}' for f in fps1)} (best "
+        f"{max(fps1):.1f}); CUDA vs CPU: r max bin err {err1:g}, d1 max diff "
+        f"{d1_err:.3g} | sdf(residue(1:4096), H, 5 A) "
+        f"({cs_cl.routes}, grid {site.dims}, cap {site.capacity}, "
+        f"{len(site.stencil)} stencil cells; compile {t_compile_cl:.2f} s): "
+        f"{ms_cl:.3f} ms/frame (frames 0-7), v-sum {v_cl:.6g}; small box (512 "
+        f"structures, grid {grid_sm[0]}) CUDA vs CPU max abs diff "
+        f"{float(np.abs(v_sm[str(dev)] - v_sm['cpu']).max()):.3g} | config #5 "
+        f"({s5_sys.natoms} atoms, {CONFIG5_FRAMES} frames, {cs5.routes}): frames/s "
+        f"{' '.join(f'{f:.1f}' for f in fps5)} (best {max(fps5):.1f}); frames 0-7 "
+        f"CUDA vs CPU: r max bin err {err5:g}, max diff "
+        + ", ".join(f"{k} {v:.3g}" for k, v in diff5.items())
+    ))
 
 
 def main() -> None:
@@ -423,10 +872,8 @@ def main() -> None:
         plain(x0, idx_o, idx_b),
     )
     # the kernel on prebuilt cell lists, against its own walk in plain torch
-    xo = x0[idx_o]
-    cl = build_cell_list(xo, box, dims)
-    xs, ids = xo[cl.order].contiguous(), idx_o[cl.order].contiguous()
-    cells = (xs, ids, cl.cell_start, xs, ids, cl.cell_start, basis, inv, dims, NBINS, R_MAX, True)
+    xs, ids, cell_start = cuda_rdf.cell_lists(x0, idx_o, basis, inv, dims)
+    cells = (xs, ids, cell_start, xs, ids, cell_start, basis, inv, dims, NBINS, R_MAX, True)
     work = {}
     h_cells = cuda_rdf.pair_hist_cells(*cells)
     err_walk = hist_err(h_cells, cuda_rdf.pair_hist_cells_plain(*cells, work=work))
@@ -446,12 +893,7 @@ def main() -> None:
     hits = int(h_plain.sum().item())
     # ordered candidate pairs of a full-stencil walk: every A atom against
     # the 27-cell stencil around it
-    occ = (cl.cell_start[1:] - cl.cell_start[:-1]).double().reshape(dims)
-    near = sum(
-        torch.roll(occ, (ox, oy, oz), (0, 1, 2))
-        for ox in (-1, 0, 1) for oy in (-1, 0, 1) for oz in (-1, 0, 1)
-    )
-    pairs = int((occ * near).sum().item())
+    pairs = stencil_pairs(cell_start, dims)
     if bool((basis != torch.diag(box)).any()):
         raise AssertionError("the operation count assumes an orthorhombic box")
     # unordered pairs of distinct atoms: the stencil holds each atom itself
@@ -459,7 +901,7 @@ def main() -> None:
     if work["pairs"] != needed:
         raise AssertionError(f"the half-stencil walk tests {work['pairs']} pairs, "
                              f"expected {needed} unordered ones")
-    nbytes_hist = xs.numel() * 4 + ids.numel() * 4 + cl.cell_start.numel() * 4 + 72 + NBINS * 4
+    nbytes_hist = xs.numel() * 4 + ids.numel() * 4 + cell_start.numel() * 4 + 72 + NBINS * 4
     hist_bound, hist_bound_by = bound(needed * OPS_PAIR + hits / 2 * OPS_PAIR_HIT, nbytes_hist)
     phase("kernel", t0, (
         f"pair_hist O-O n={idx_o_np.size} dims={dims}: candidate pairs, ordered "
@@ -696,6 +1138,13 @@ def main() -> None:
         + f"; small box chain CUDA vs CPU: {chain}"
     ))
 
+    # -- 9.-12. the triclinic mode, the breathing cell, radius 2, the other
+    # routes
+    tri = kernel_tri(sys_, traj, idx_o, idx_o_np, idx_b)
+    launches_tri = main_tri(dev, tri, idx_o)
+    r2 = kernel_r2(dev, sys_, traj, idx_o, idx_b)
+    other_routes(dev, sys_, traj)
+
     print(json.dumps({"kernels": [
         {
             "name": "pair_hist",
@@ -708,6 +1157,32 @@ def main() -> None:
             "plain_ms": ms_plain,
             "bound_ms": hist_bound,
             "bound_by": hist_bound_by,
+            "library_ms": None,
+        },
+        {
+            "name": "pair_hist (triclinic mode)",
+            "route": "cuda",
+            "source": "viamd_tpu_torch/csrc/pair_hist.cu",
+            "replaces": "viamd_tpu/ops/pallas_rdf.py:58",
+            "launches": launches_tri,
+            "max_abs_err": tri["err"],
+            "ms": tri["ms"],
+            "plain_ms": tri["plain_ms"],
+            "bound_ms": tri["bound_ms"],
+            "bound_by": tri["bound_by"],
+            "library_ms": None,
+        },
+        {
+            "name": "pair_hist (radius-2 stencil)",
+            "route": "cuda",
+            "source": "viamd_tpu_torch/csrc/pair_hist.cu",
+            "replaces": "viamd_tpu/ops/pallas_rdf.py:58",
+            "launches": r2["launches"],
+            "max_abs_err": r2["err"],
+            "ms": r2["ms"],
+            "plain_ms": r2["plain_ms"],
+            "bound_ms": r2["bound_ms"],
+            "bound_by": r2["bound_by"],
             "library_ms": None,
         },
         {

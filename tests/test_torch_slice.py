@@ -172,10 +172,10 @@ def test_interop_roundtrip_keeps_topology(slice_results):
 @pytest.mark.parametrize(
     "src, match",
     [
-        ("d = distance(1, 2);", "'distance' not yet ported"),
+        ("d = distance(element('O'), element('H'));", "'distance' of positions .* not yet ported"),
         ("c = count(element('O'));", "'count' not yet ported"),
         ("s = element('O') and element('H');", "not yet ported"),
-        ("r = rdf(element('O'), element('O'), 3.0);", "unknown element|not yet ported"),
+        ("r = rdf(element('Qq'), element('O'), 3.0);", "unknown element|not yet ported"),
         ("q = nothing(1);", "unknown function"),
     ],
 )
@@ -186,15 +186,22 @@ def test_unported_builtins_raise(src, match):
 
 
 def test_unported_routes_raise():
+    """The routes that raised before the dense and radius-2 boxes were
+    ported now compile (tests/test_torch_rdf_routes.py and
+    test_torch_sdf_routes.py hold their values); a dynamic selection still
+    raises."""
     sys_, _ = water_box(100, n_frames=1, seed=0)  # n < 4096 → dense RDF
-    with pytest.raises(ScriptError, match="rdf outside the cell-list route"):
-        compile_script("r = rdf(element('O'), element('O'), 5.0);", sys_, "cpu")
-    with pytest.raises(ScriptError, match="sdf outside the pairs route"):
-        compile_script("v = sdf(residue(1:4), element('H'), 5.0);", sys_, "cpu")
-    # 4,200 atoms at twice the density: a 27.6 Å box, under 3 cutoffs
+    c = compile_script("r = rdf(element('O'), element('O'), 5.0);", sys_, "cpu")
+    assert c.routes == ["rdf:dense"]
+    c = compile_script("v = sdf(residue(1:4), element('H'), 5.0);", sys_, "cpu")
+    assert c.routes == ["sdf:dense"]
+    # 4,200 atoms at twice the density: a 27.6 Å box, under 3 cutoffs,
+    # the radius-2 cell list
     big, _ = water_box(1_400, density_atoms_per_A3=0.2, n_frames=1, seed=0)
-    with pytest.raises(ScriptError, match="radius-2"):
-        compile_script("r = rdf(element('O'), element('O'), 10.0);", big, "cpu")
+    c = compile_script("r = rdf(element('O'), element('O'), 10.0);", big, "cpu")
+    assert c.routes == ["rdf:cell_list_r2"]
+    with pytest.raises(ScriptError, match="not yet ported"):
+        compile_script("r = rdf(within(3.0, element('O')), element('O'), 5.0);", sys_, "cpu")
 
 
 def test_selection_subscripts_match_jax():

@@ -11,20 +11,24 @@
 //     d = min_image(x_i − x_j)   (single fractional round, ops/pbc.py)
 //     if |d| < r_max: hist[int(|d| · nbins / r_max)] += 1
 //
-// Two walks, as ops/cuda_rdf.py::pair_hist_cells_plain repeats them:
-//   * A ≠ B (two cell lists): the full 27-cell stencil, ordered pairs, the
+// The stencil reaches `radius` cells each way (1 or 2, as the TPU kernel's
+// `radius`): (2·radius + 1)³ cells, 27 or 125. Cells are at least
+// r_max / radius wide, so every pair within r_max lies in it. Two walks, as
+// ops/cuda_rdf.py::pair_hist_cells_plain repeats them:
+//   * A ≠ B (two cell lists): the full stencil, ordered pairs, the
 //     global-id test.
 //   * symmetric (one cell list for both sides, A == B): the self cell with
-//     pairs (i, j), j > i in the cell's CSR order, plus the 13 "upper"
-//     offsets (ops/rdf.py::stencil_offsets(1, symmetric=True)[1:], the TPU
-//     kernel's half stencil) with all pairs. Each unordered pair is counted
-//     once in shared memory and the block's merge adds twice each bin.
+//     pairs (i, j), j > i in the cell's CSR order, plus the 13 (62) "upper"
+//     offsets (ops/rdf.py::stencil_offsets(radius, symmetric=True)[1:], the
+//     TPU kernel's half stencil) with all pairs. Each unordered pair is
+//     counted once in shared memory and the block's merge adds twice each
+//     bin.
 //     Why that equals the all-pairs plain version (which counts (i, j) and
 //     (j, i)) bit for bit: swapping i and j negates every component of d
 //     exactly; products and sums of negated operands round to the negated
 //     result (round to nearest even is symmetric), and rintf(−f) = −rintf(f);
 //     so the squared distance of (j, i) has the bits of that of (i, j). With
-//     min(dims) >= 3 (the wrapper requires it) the 27 offsets reach 27
+//     min(dims) >= 2·radius + 1 (the wrapper requires it) the offsets reach
 //     distinct cells, so each unordered cell pair is visited exactly once:
 //     from the cell for which its offset is the upper one of ±o.
 //
@@ -55,8 +59,12 @@
 //     threads / rows slices walk the B positions with that stride, so each
 //     B atom is loaded once for two candidates. At 33 atoms a cell that is
 //     15 slices of 17 threads, 255 of 256 lanes busy, where one lane per A
-//     atom would leave most lanes of a second pass idle. Divisions happen
-//     once per thread;
+//     atom would leave most lanes of a second pass idle. A cell's A atoms
+//     go in chunks of kChunk (256), so a slice is at most half the block:
+//     the ~267 O a cell of a radius-2 grid at the headline density take a
+//     chunk of 256 on 2 slices and one of 11 on 42, where one chunk of 267
+//     would walk every B position on 134 threads and idle the rest.
+//     Divisions happen once per thread;
 //   * the grid is ncells x parts blocks, parts chosen at launch so the card
 //     holds the blocks at least kWaves times over, which keeps the SMs fed
 //     to the end of the walk;
@@ -89,11 +97,15 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kMinBlocks = 4;  // blocks an SM must hold: 64 registers a thread
 constexpr int kWaves = 2;      // blocks launched per block the card holds at once
 constexpr int kAtoms = 2;      // A atoms a thread holds
+constexpr int kChunk = kAtoms * kThreads / 2;  // A atoms a pass: 2+ slices
 constexpr int kStage = 1024;  // B atoms staged per pass, one float4 each
 constexpr int kMaxBins = 4096;
+constexpr int kMaxRadius = 2;
+constexpr int kMaxSeg = (2 * kMaxRadius + 1) * (2 * kMaxRadius + 1) *
+                        (2 * kMaxRadius + 1);  // stencil cells, 125
 // dynamic shared memory a block may take on sm_90: 227 KB less the static
 // arrays (the staging buffer and the stencil table)
-constexpr int kMaxSmem = 232448 - kStage * 16 - 55 * 4;
+constexpr int kMaxSmem = 232448 - kStage * 16 - (2 * kMaxSeg + 1) * 4;
 constexpr int kMaxParts = 16;
 static_assert(kWarps * 4 * kMaxBins <= kMaxSmem,
               "a histogram per warp must fit at the most bins");
@@ -102,8 +114,8 @@ static_assert(kWarps * 4 * kMaxBins <= kMaxSmem,
 // the stencil cells' first atoms and offsets in the concatenation, and, in
 // dynamic shared memory, one histogram of nbins int32 per warp.
 __shared__ float4 g_stage[kStage];
-__shared__ int g_seg_start[27];
-__shared__ int g_seg_off[28];
+__shared__ int g_seg_start[kMaxSeg];
+__shared__ int g_seg_off[kMaxSeg + 1];
 extern __shared__ int g_hist[];
 
 // |min_image(d)|², in the plain version's order of operations.
@@ -177,10 +189,10 @@ __device__ __forceinline__ void walk(
     float keep, int nbins, float r_max, float inv_bin, float s_hi) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const float nan = __int_as_float(0x7fc00000);
-  for (int ac = 0; ac < na; ac += kAtoms * kThreads) {
+  for (int ac = 0; ac < na; ac += kChunk) {
     // a slice is `rows` threads holding the chunk's atoms r, r + rows, ...;
     // slices walk the B positions with stride `slices`
-    const int nac = min(kAtoms * kThreads, na - ac);
+    const int nac = min(kChunk, na - ac);
     const int rows = (nac + kAtoms - 1) / kAtoms;
     const int slices = kThreads / rows;
     const int slice = tid / rows;
@@ -240,8 +252,9 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
                      const int* __restrict__ b_start,
                      const float* __restrict__ basis,
                      const float* __restrict__ inv_basis, int dx, int dy,
-                     int dz, int nbins, int symmetric, float r_max,
-                     float inv_bin, float s_hi, int* __restrict__ hist) {
+                     int dz, int nbins, int symmetric, int radius,
+                     float r_max, float inv_bin, float s_hi,
+                     int* __restrict__ hist) {
   const int cell = blockIdx.x;
   const int a0 = a_start[cell];
   const int na = a_start[cell + 1] - a0;
@@ -250,31 +263,40 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   for (int b = tid; b < kWarps * nbins; b += kThreads) g_hist[b] = 0;
 
-  const int nseg = symmetric ? 14 : 27;
+  // offset o of the stencil is (o / w² − radius, o / w % w − radius,
+  // o % w − radius); the centre (self) is o = nst / 2, and o > nst / 2 are
+  // the lexicographically upper offsets
+  const int w = 2 * radius + 1, nst = w * w * w, centre = nst / 2;
+  const int nseg = symmetric ? centre + 1 : nst;
   if (warp == 0) {
-    int start = 0, cnt = 0;
-    if (lane < nseg) {
-      // self cell first, then the 13 upper offsets, then the 13 lower ones
-      const int o = (lane + 13) % 27;
-      const int cz = cell % dz;
-      const int cy = (cell / dz) % dy;
-      const int cx = cell / (dz * dy);
-      const int nx = (cx + o / 9 - 1 + dx) % dx;
-      const int ny = (cy + (o / 3) % 3 - 1 + dy) % dy;
-      const int nz = (cz + o % 3 - 1 + dz) % dz;
-      const int nc = (nx * dy + ny) * dz + nz;
-      start = b_start[nc];
-      cnt = b_start[nc + 1] - start;
-    }
-    int inc = cnt;  // inclusive scan of the counts over the warp
+    const int cz = cell % dz;
+    const int cy = (cell / dz) % dy;
+    const int cx = cell / (dz * dy);
+    int carry = 0;
+    for (int l0 = 0; l0 < nseg; l0 += 32) {
+      const int l = l0 + lane;
+      int start = 0, cnt = 0;
+      if (l < nseg) {
+        // self cell first, then the upper offsets, then the lower ones
+        const int o = (l + centre) % nst;
+        const int nx = (cx + o / (w * w) - radius + dx) % dx;
+        const int ny = (cy + (o / w) % w - radius + dy) % dy;
+        const int nz = (cz + o % w - radius + dz) % dz;
+        const int nc = (nx * dy + ny) * dz + nz;
+        start = b_start[nc];
+        cnt = b_start[nc + 1] - start;
+      }
+      int inc = cnt;  // inclusive scan of the counts over the warp
 #pragma unroll
-    for (int k = 1; k < 32; k <<= 1) {
-      const int v = __shfl_up_sync(0xffffffffu, inc, k);
-      if (lane >= k) inc += v;
-    }
-    if (lane < nseg) {
-      g_seg_start[lane] = start;
-      g_seg_off[lane + 1] = inc;
+      for (int k = 1; k < 32; k <<= 1) {
+        const int v = __shfl_up_sync(0xffffffffu, inc, k);
+        if (lane >= k) inc += v;
+      }
+      if (l < nseg) {
+        g_seg_start[l] = start;
+        g_seg_off[l + 1] = carry + inc;
+      }
+      carry += __shfl_sync(0xffffffffu, inc, 31);
     }
     if (lane == 0) g_seg_off[0] = 0;
   }
@@ -323,16 +345,20 @@ extern "C" int pair_hist_max_bins() { return kMaxBins; }
 
 // Launches on `stream`; adds into `hist` (nbins int32, zeroed by the
 // caller). `symmetric`: xb/idb/b_start are the A cell list itself (the half
-// stencil). Returns cudaGetLastError() right after the launch, or an error
-// without launching.
+// stencil). `radius`: 1 or 2, with every dim at least 2·radius + 1.
+// Returns cudaGetLastError() right after the launch, or an error without
+// launching.
 extern "C" int pair_hist_launch(const float* xa, const int* ida,
                                 const int* a_start, const float* xb,
                                 const int* idb, const int* b_start,
                                 const float* basis, const float* inv_basis,
                                 int dx, int dy, int dz, int nbins,
                                 float r_max, float inv_bin, float s_hi,
-                                int symmetric, int* hist, void* stream) {
-  if (nbins < 1 || nbins > kMaxBins || (symmetric && xb != xa))
+                                int symmetric, int radius, int* hist,
+                                void* stream) {
+  const int w = 2 * radius + 1;
+  if (nbins < 1 || nbins > kMaxBins || (symmetric && xb != xa) ||
+      radius < 1 || radius > kMaxRadius || dx < w || dy < w || dz < w)
     return (int)cudaErrorInvalidValue;
   const int smem_bytes = kWarps * 4 * nbins;
   // how many blocks the current device holds at once. Asked on every launch
@@ -357,6 +383,6 @@ extern "C" int pair_hist_launch(const float* xa, const int* ida,
   const dim3 grid(ncells, parts);
   pair_hist_kernel<<<grid, kThreads, smem_bytes, (cudaStream_t)stream>>>(
       xa, ida, a_start, xb, idb, b_start, basis, inv_basis, dx, dy, dz, nbins,
-      symmetric, r_max, inv_bin, s_hi, hist);
+      symmetric, radius, r_max, inv_bin, s_hi, hist);
   return (int)cudaGetLastError();
 }

@@ -4,8 +4,9 @@ Counterpart of viamd_tpu.datagen. `water_box` is a numpy copy (the same
 seed gives the same system and frames as the JAX package); for
 `water_box_device` the frame noise is drawn on the device with a
 `torch.Generator`, whose stream differs from JAX's threefry — compare the
-two packages on shared numpy frames, not on these. `render_inputs` is the
-molecule-render scene of the JAX package's benchmark for a system.
+two packages on shared numpy frames, not on these. `polyala_helix` is a
+numpy copy too. `render_inputs` is the molecule-render scene of the JAX
+package's benchmark for a system.
 """
 
 from __future__ import annotations
@@ -114,6 +115,48 @@ def water_box_device(
         sys.cell.basis.astype(np.float32), (n_frames, 3, 3)
     ).copy()
     return sys, DeviceTrajectory(stack, cells)
+
+
+def polyala_helix(
+    n_res: int = 64, n_frames: int = 16, seed: int = 0
+) -> tuple[System, InMemoryTrajectory]:
+    """Ideal poly-alanine α-helix (N/H/CA/HA/C/O/CB per residue) and
+    jittered frames, aperiodic: the JAX package's stand-in for 1ALA-500
+    (BASELINE config #1), the same seed giving the same coordinates,
+    elements, residues and frames. Radii and masses come from the element
+    tables; flags, bonds and the backbone, which the JAX package's
+    `postprocess` infers, stay empty (that pass is not ported)."""
+    rng = np.random.RandomState(seed)
+    template = [
+        ("N", 7), ("H", 1), ("CA", 6), ("HA", 1), ("C", 6), ("O", 8),
+        ("CB", 6),
+    ]
+    # helical parameters: rise 1.5 Å, 100° per residue, radius 2.3 Å
+    names, zs, coords = [], [], []
+    for r in range(n_res):
+        phase = np.radians(100.0) * r
+        base = np.array([2.3 * np.cos(phase), 2.3 * np.sin(phase), 1.5 * r])
+        for k, (nm, z) in enumerate(template):
+            names.append(nm)
+            zs.append(z)
+            local = np.array(
+                [0.4 * np.cos(phase + k), 0.4 * np.sin(phase + k), 0.3 * k]
+            )
+            coords.append(base + local)
+    coords = np.asarray(coords, np.float32)
+    n = coords.shape[0]
+    sys = build_system(
+        coords=coords,
+        atom_names=names,
+        res_names=["ALA"] * n,
+        res_ids=np.repeat(np.arange(1, n_res + 1), len(template)),
+        elements_z=np.asarray(zs, np.int32),
+        cell=UnitCell.none(),
+    )
+    sys.radius = E.VDW_RADII[sys.element].astype(np.float32)
+    sys.mass = E.MASSES[sys.element].astype(np.float32)
+    frames = coords[None] + rng.normal(scale=0.08, size=(n_frames, n, 3))
+    return sys, InMemoryTrajectory(frames.astype(np.float32))
 
 
 def render_inputs(sys: System, width: int, height: int,

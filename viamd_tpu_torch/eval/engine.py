@@ -6,7 +6,11 @@ VIAMD src/main.cpp:959-1035). Frames are walked in chunks, one
 round trip: temporal values are stacked per chunk, distribution and volume
 accumulators are summed over frames in float32 — within a chunk first, then
 into the running total, the order the JAX package sums in. Results stay on
-the device until first read.
+the device until first read. The trajectory's cells are read to the host
+once, when the Evaluator is built, and the Evaluator keeps the script
+bound to grids sized for the smallest perpendicular widths over all
+frames (`CompiledScript.fitted`, its `script`), so a frame whose box
+shrank loses no pair. The CompiledScript itself is not changed.
 
 Not ported yet: the JAX engine's batch modes (unroll/vmap/dispatch) and
 VIAMD_TPU_PROP_BARRIER — PyTorch runs eagerly, frame by frame — and
@@ -23,9 +27,10 @@ import torch
 
 from viamd_tpu_torch.core.bitfield import Bitfield
 from viamd_tpu_torch.io.trajectory import DeviceTrajectory
+from viamd_tpu_torch.ops.neighbors import diagonal_cells, perpendicular_widths
 from viamd_tpu_torch.ops.pbc import inv_basis_of
 from viamd_tpu_torch.ops.rdf import rdf_normalize
-from viamd_tpu_torch.script.compiler import CompiledScript
+from viamd_tpu_torch.script.compiler import CompiledScript, FittedScript
 from viamd_tpu_torch.script.values import PropertyMeta
 
 
@@ -127,6 +132,13 @@ class Evaluator:
         self.traj = traj
         self.chunk = chunk
         self._inv = inv_basis_of(traj.cells)  # (F, 3, 3), once
+        # the cells, read from the device once: every cell-list grid is
+        # sized for the smallest perpendicular widths over all frames, so
+        # no frame's cells are narrower than the grid's reach
+        cells = traj.cells.cpu().numpy()
+        self.script: FittedScript = compiled.fitted(
+            perpendicular_widths(cells).min(axis=0), bool(diagonal_cells(cells).all())
+        )
 
     def run(self, frame_range: Optional[Iterable[int]] = None) -> EvalResult:
         traj = self.traj
@@ -135,7 +147,7 @@ class Evaluator:
             if frame_range is not None
             else np.arange(traj.num_frames, dtype=np.int64)
         )
-        frame_fn = self.compiled.frame_fn
+        frame_fn = self.script.frame_fn
         frame_mask = Bitfield(traj.num_frames)
         t_chunks: list = []
         acc: Optional[dict] = None

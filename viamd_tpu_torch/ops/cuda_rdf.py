@@ -4,9 +4,13 @@ plain PyTorch versions.
 Counterpart of viamd_tpu/ops/pallas_rdf.py (`pair_dist_histogram_pl`, whose
 Pallas kernel `_hist_kernel` is replaced by csrc/pair_hist.cu).
 
-`pair_dist_histogram_cl` is the route the compiler takes for periodic
-orthorhombic systems. On a CUDA tensor it builds the CSR cell lists
-(ops/neighbors.py) and launches the kernel, through the half stencil when
+`pair_dist_histogram_cl` is the cell-list route the compiler takes for
+large periodic systems: cartesian cells on an orthorhombic box, fractional
+cells (and the kernel's general 3x3 min-image) on a triclinic one; cells
+at least r_max wide and a stencil of ±1 cell, or, in a box under 3 cutoffs
+across, at least r_max/2 wide and ±2 cells (`radius`, as the TPU kernel's).
+On a CUDA tensor it builds the CSR cell lists (`cell_lists`,
+ops/neighbors.py) and launches the kernel, through the half stencil when
 one index tensor serves both sides; on a CPU tensor it computes the same
 histogram with the all-pairs plain version, `pair_dist_histogram_scatter_idx`
 (ops/rdf.py, imported here), which stays the specification. Any other
@@ -23,7 +27,7 @@ import numpy as np
 import torch
 
 from viamd_tpu_torch.cuda_build import build_info, load_library, check_tensor as _check
-from viamd_tpu_torch.ops.neighbors import build_cell_list
+from viamd_tpu_torch.ops.neighbors import build_cell_list, frac_coords
 from viamd_tpu_torch.ops.rdf import (
     min_image_sq,
     pair_dist_histogram_scatter_idx,
@@ -32,6 +36,7 @@ from viamd_tpu_torch.ops.rdf import (
 )
 
 __all__ = [
+    "cell_lists",
     "launches",
     "pair_dist_histogram_cl",
     "pair_dist_histogram_scatter_idx",
@@ -56,7 +61,7 @@ def _library():
         lib.pair_hist_launch.argtypes = [ctypes.c_void_p] * 8 + [
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_float, ctypes.c_float, ctypes.c_float,
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
         ]
         lib.pair_hist_launch.restype = ctypes.c_int
         lib.pair_hist_max_bins.argtypes = []
@@ -95,6 +100,14 @@ def _check_symmetric(xa, ida, a_start, xb, idb, b_start, symmetric):
                          "pass the same xa, ida, a_start as xb, idb, b_start")
 
 
+def _check_radius(radius, dims):
+    if radius not in (1, 2):
+        raise ValueError(f"radius must be 1 or 2, got {radius}")
+    if min(dims) < 2 * radius + 1:
+        raise ValueError(f"a radius-{radius} stencil needs min(dims) >= "
+                         f"{2 * radius + 1}, got {dims}")
+
+
 def pair_hist_cells(
     xa: torch.Tensor,  # (na, 3) f32, A atoms in cell order
     ida: torch.Tensor,  # (na,) int32 global ids
@@ -108,6 +121,7 @@ def pair_hist_cells(
     nbins: int,
     r_max: float,
     symmetric: bool = False,  # B is A's own cell list: the half stencil
+    radius: int = 1,  # stencil reach in cells: 1 or 2
 ) -> torch.Tensor:
     """Launch csrc/pair_hist.cu on CSR cell lists → (nbins,) f32 counts."""
     global launches
@@ -115,8 +129,7 @@ def pair_hist_cells(
     dev = xa.device
     if dev.type != "cuda":
         raise ValueError(f"pair_hist_cells needs CUDA tensors, got {dev}")
-    if min(dims) < 3:
-        raise ValueError(f"pair_hist_cells needs min(dims) >= 3, got {dims}")
+    _check_radius(radius, dims)
     lib = _library()
     if not 0 < nbins <= lib.pair_hist_max_bins():
         raise ValueError(f"nbins {nbins} outside (0, {lib.pair_hist_max_bins()}]")
@@ -137,7 +150,7 @@ def pair_hist_cells(
         xb.data_ptr(), idb.data_ptr(), b_start.data_ptr(),
         basis.data_ptr(), inv_basis.data_ptr(),
         dims[0], dims[1], dims[2], nbins, r_max, inv_bin,
-        sqrt_reject_bound(r_max), int(symmetric),
+        sqrt_reject_bound(r_max), int(symmetric), radius,
         hist.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
@@ -159,19 +172,21 @@ def pair_hist_cells_plain(
     nbins: int,
     r_max: float,
     symmetric: bool = False,
+    radius: int = 1,
     work: dict | None = None,
 ) -> torch.Tensor:
     """`pair_hist_cells` in plain PyTorch: the kernel's walk, pair for pair,
     on any device → (nbins,) f32 counts.
 
-    Each A atom against the cells of the stencil around its cell: with
-    `symmetric`, the self cell's atoms after it in CSR order and the 13
-    upper offsets, each unordered pair counted twice; else all 27 cells,
+    Each A atom against the cells of the stencil of `radius` around its
+    cell: with `symmetric`, the self cell's atoms after it in CSR order and
+    the upper offsets, each unordered pair counted twice; else every cell,
     pairs of equal ids skipped. Distances as `min_image_dist` computes them,
     the sqrt only where |o|² <= sqrt_reject_bound(r_max). `work`, when
     given, receives the walk's counts: "pairs" (candidates walked) and
     "sqrt" (candidates past the reject)."""
     _check_symmetric(xa, ida, a_start, xb, idb, b_start, symmetric)
+    _check_radius(radius, dims)
     dev = xa.device
     na = xa.shape[0]
     ncells = dims[0] * dims[1] * dims[2]
@@ -185,7 +200,7 @@ def pair_hist_cells_plain(
     inv_bin = float(torch.tensor(nbins / r_max, dtype=torch.float32))
     counts = torch.zeros(nbins, dtype=torch.int64, device=dev)
     pairs = sqrts = 0
-    for o in stencil_offsets(1, symmetric):
+    for o in stencil_offsets(radius, symmetric):
         nx, ny, nz = ((c3[k] + o[k]) % dims[k] for k in range(3))
         nc = (nx * dims[1] + ny) * dims[2] + nz
         lo, n = b_st[nc], b_st[nc + 1] - b_st[nc]
@@ -210,23 +225,53 @@ def pair_hist_cells_plain(
     return (counts * 2 if symmetric else counts).to(torch.float32)
 
 
+def cell_lists(
+    x: torch.Tensor,  # (n, 3) frame coordinates
+    idx: torch.Tensor,  # (m,) int32 global indices
+    basis: torch.Tensor,
+    inv_basis: torch.Tensor,
+    dims: tuple,
+    fractional: bool = False,
+) -> tuple:
+    """The CSR cell list of atoms `idx`, as `pair_dist_histogram_cl` builds
+    it for the kernel: (positions (m, 3), ids (m,), cell_start (ncells+1,))
+    in cell order. Cartesian cells on the diagonal of `basis`, or, with
+    `fractional`, cells of `x · inv_basis` on a unit box."""
+    xs = x[idx]
+    if fractional:
+        cl = build_cell_list(frac_coords(xs, inv_basis), torch.ones(3, device=x.device), dims)
+    else:
+        cl = build_cell_list(xs, torch.diagonal(basis), dims)
+    return xs[cl.order].contiguous(), idx[cl.order].contiguous(), cl.cell_start
+
+
 def pair_dist_histogram_cl(
     x: torch.Tensor,  # (n, 3) f32 frame coordinates
     idx_a: torch.Tensor,  # (na,) int32 global indices of the A selection
     idx_b: torch.Tensor,  # (nb,) int32 global indices of the B selection
-    basis: torch.Tensor,  # (3, 3) orthorhombic basis (diagonal)
+    basis: torch.Tensor,  # (3, 3) basis: diagonal unless `fractional`
     inv_basis: torch.Tensor,
     nbins: int,
     r_max: float,
-    dims: tuple,  # cell grid, cells >= r_max wide, min(dims) >= 3
+    dims: tuple,  # cell grid: cells >= r_max / radius wide
+    fractional: bool = False,  # bin in fractional space (triclinic cells)
+    radius: int = 1,  # stencil reach in cells, min(dims) >= 2·radius + 1
 ) -> torch.Tensor:
     """A→B min-image pair-distance histogram (nbins,) f32 through a cell
     list: the kernel on CUDA, the plain version on the CPU.
+
+    Orthorhombic cells are binned in cartesian space on the diagonal of
+    `basis`; with `fractional`, any cell is binned on the fractional
+    coordinates `x · inv_basis` and the kernel takes its general 3x3
+    min-image. `dims` must keep every cell at least r_max / radius across,
+    in this frame's basis (the perpendicular widths / dims >= r_max /
+    radius): the kernel walks ±radius cells.
 
     Each index tensor must hold distinct ids (the compiler passes a mask's
     `indices()`). When `idx_b is idx_a` the kernel skips the pairs of an
     atom with itself by position in its cell, where the specification skips
     equal ids: with a repeated id the two would differ."""
+    _check_radius(radius, dims)
     if x.device.type == "cpu":
         ones_a = torch.ones(idx_a.shape[0], dtype=torch.float32)
         ones_b = torch.ones(idx_b.shape[0], dtype=torch.float32)
@@ -237,20 +282,13 @@ def pair_dist_histogram_cl(
         raise ValueError(f"no pair histogram route for device {x.device}")
     if idx_a.shape[0] == 0 or idx_b.shape[0] == 0:
         return torch.zeros(nbins, dtype=torch.float32, device=x.device)
-    box = torch.diagonal(basis)
-
-    def cells(idx):
-        xs = x[idx]
-        cl = build_cell_list(xs, box, dims)
-        return xs[cl.order].contiguous(), idx[cl.order].contiguous(), cl.cell_start
-
-    xa, ida, a_start = cells(idx_a)
+    basis, inv_basis = basis.contiguous(), inv_basis.contiguous()
+    a = cell_lists(x, idx_a, basis, inv_basis, dims, fractional)
     # one cell list and the half stencil serve both sides when the caller
     # passes one index tensor for both (comparing contents here would wait
     # on the device)
     symmetric = idx_b is idx_a
-    xb, idb, b_start = (xa, ida, a_start) if symmetric else cells(idx_b)
+    b = a if symmetric else cell_lists(x, idx_b, basis, inv_basis, dims, fractional)
     return pair_hist_cells(
-        xa, ida, a_start, xb, idb, b_start,
-        basis.contiguous(), inv_basis.contiguous(), dims, nbins, r_max, symmetric,
+        *a, *b, basis, inv_basis, dims, nbins, r_max, symmetric, radius,
     )

@@ -1,12 +1,17 @@
 """Cell lists for cutoff-limited pair kernels, on torch tensors.
 
 Counterpart of viamd_tpu.ops.neighbors. The host-side grid sizers
-(`choose_grid`, `choose_grid_r`, `choose_grid_triclinic`) are numpy copies.
+(`choose_grid`, `choose_grid_r`, `choose_grid_triclinic`) are numpy copies;
+`perpendicular_widths` gives the per-frame widths every grid is sized from.
 `build_cell_list` is a CSR cell list: atoms sorted stably by cell id (atom
 index breaks ties) plus `cell_start (ncells+1,)`. The JAX package instead
 builds a fixed-capacity (ncells, K) slot table, because a TPU kernel reads
 cells as dense tiles; a GPU kernel reads a cell's atoms by offset, so
 nothing is padded and nothing is dropped.
+
+Triclinic cells are binned in fractional space: the cell list of
+`frac_coords(x, inv_basis)` on a unit box (`box = ones`), as the JAX
+package's `sdf_accumulate_cl` and triclinic RDF do.
 """
 
 from __future__ import annotations
@@ -85,6 +90,58 @@ def choose_grid_triclinic(
     return tuple(int(d) for d in dims), capacity
 
 
+def perpendicular_widths(cells: np.ndarray) -> np.ndarray:
+    """(F, 3) float64 perpendicular widths of (F, 3, 3) row-vector cell
+    bases: the diagonal of an orthorhombic basis, 1/|inv[:, i]| (the
+    distance between the lattice planes of axis i) of a triclinic one, 0
+    for an aperiodic (zero) one. A grid of dims_i ≤ width_i / reach cells
+    keeps every cell at least `reach` wide across axis i."""
+    b = np.asarray(cells, np.float64).reshape(-1, 3, 3)
+    out = np.zeros((b.shape[0], 3))
+    ortho = diagonal_cells(b)
+    out[ortho] = np.einsum("fii->fi", b)[ortho]
+    tri = ~ortho & (np.abs(np.linalg.det(b)) > 1e-12)
+    if tri.any():
+        inv = np.linalg.inv(b[tri])
+        out[tri] = 1.0 / np.linalg.norm(inv, axis=1)
+    return out
+
+
+def diagonal_cells(cells: np.ndarray) -> np.ndarray:
+    """(F,) True where a (F, 3, 3) cell basis has no off-diagonal entry."""
+    b = np.asarray(cells).reshape(-1, 3, 3)
+    return ~(b * (1 - np.eye(3))).any(axis=(1, 2))
+
+
+def frac_coords(x: torch.Tensor, inv_basis: torch.Tensor) -> torch.Tensor:
+    """(n, 3) fractional coordinates x · inv_basis, written out per
+    component (the same float operations on every device)."""
+    return torch.stack([
+        x[:, 0] * inv_basis[0, k] + x[:, 1] * inv_basis[1, k]
+        + x[:, 2] * inv_basis[2, k]
+        for k in range(3)
+    ], dim=1)
+
+
+def cell3_of_points(pts: torch.Tensor, box: torch.Tensor, dims: tuple) -> torch.Tensor:
+    """(Q, 3) int64 cell coordinates of query points (viamd_tpu's
+    `cell3_of_points`): wrapped into [0, 1) of `box`, clamped to the grid."""
+    dims_t = torch.tensor(dims, dtype=torch.int64, device=pts.device)
+    frac = pts / box
+    frac = frac - torch.floor(frac)
+    c3 = (frac * dims_t.to(pts.dtype)).to(torch.int64)
+    return torch.minimum(c3.clamp_min(0), dims_t - 1)
+
+
+def candidate_cells(cell3: torch.Tensor, offsets: torch.Tensor, dims: tuple) -> torch.Tensor:
+    """(Q, S3) flat ids of the cells at `offsets` (S3, 3) around each query
+    cell `cell3` (Q, 3), wrapped periodically (viamd_tpu's
+    `candidate_cells`, with the stencil passed in)."""
+    dims_t = torch.tensor(dims, dtype=torch.int64, device=cell3.device)
+    c = torch.remainder(cell3[:, None, :] + offsets[None, :, :].to(torch.int64), dims_t)
+    return (c[..., 0] * dims[1] + c[..., 1]) * dims[2] + c[..., 2]
+
+
 def cell_ids(x: torch.Tensor, box: torch.Tensor, dims: tuple) -> torch.Tensor:
     """(n,) int64 cell id of each atom on an orthorhombic grid.
 
@@ -102,7 +159,8 @@ def cell_ids(x: torch.Tensor, box: torch.Tensor, dims: tuple) -> torch.Tensor:
 
 
 def build_cell_list(x: torch.Tensor, box: torch.Tensor, dims: tuple) -> CellList:
-    """CSR cell list of one frame's atoms on an orthorhombic `dims` grid.
+    """CSR cell list of one frame's atoms on an orthorhombic `dims` grid
+    (`x` fractional and `box` ones: a triclinic grid).
 
     `cell_start` comes from a scatter-add count + cumsum: `torch.bincount`
     would size its output from the data, which makes the host wait for the

@@ -109,27 +109,30 @@ def pair_dist_histogram_scatter_idx(
     selections) are skipped; a distance that rounds onto bin `nbins` is
     dropped, as in the JAX package. Both (i, j) and (j, i) count when both
     selections cover them. Tiled on the A side so a tile holds at most
-    `max_pairs` pairs.
+    `max_pairs` pairs. Every pair of a tile goes into one `index_add_`: a
+    boolean selection of the counted pairs would make the host wait for
+    the device once per tile. The pairs it does not count go to a scratch
+    slot of their B atom's own, past the bins, so they neither count nor
+    pile onto one address.
     """
     na, nb = int(idx_a.shape[0]), int(idx_b.shape[0])
-    hist = torch.zeros(nbins, dtype=torch.float32, device=x.device)
     if na == 0 or nb == 0:
-        return hist
+        return torch.zeros(nbins, dtype=torch.float32, device=x.device)
+    hist = torch.zeros(nbins + nb, dtype=torch.float32, device=x.device)
+    scratch = torch.arange(nbins, nbins + nb, device=x.device)
     xa, xb = x[idx_a], x[idx_b]
     wa, wb = w_a.to(torch.float32), w_b.to(torch.float32)
     inv_bin = float(torch.tensor(nbins / r_max, dtype=torch.float32))
     tile = max(1, min(na, max_pairs // nb))
     for i0 in range(0, na, tile):
         dist = min_image_dist(xa[i0 : i0 + tile], xb, basis, inv_basis)
-        bins = (dist * inv_bin).to(torch.int64)
-        take = (
-            (dist < r_max)
-            & (bins < nbins)
-            & (idx_a[i0 : i0 + tile, None] != idx_b[None, :])
-        )
+        take = (dist < r_max) & (idx_a[i0 : i0 + tile, None] != idx_b[None, :])
+        # dist < r_max keeps the product finite and below nbins + 1
+        bins = torch.where(take, dist * inv_bin, 0.0).to(torch.int64)
+        slot = torch.where(take & (bins < nbins), bins, scratch)
         w = wa[i0 : i0 + tile, None] * wb[None, :]
-        hist.index_add_(0, bins[take], w[take])
-    return hist
+        hist.index_add_(0, slot.reshape(-1), w.reshape(-1))
+    return hist[:nbins]
 
 
 def rdf_normalize(
