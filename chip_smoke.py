@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths through the entry points a user calls. First
+Drives the port's paths through the entry points a user calls. First
 the headline analysis path — the script
     r = rdf(element('O'), element('O'), 10.0);
     v = sdf(residue(1:64), element('H'), 5.0);
@@ -70,7 +70,18 @@ compose, FXAA 3.11). Phases, one result line each:
    dense RDF) against the CPU; sdf(residue(1:4096), element('H'), 5 Å) on
    the box (S·n_t = 2.7e8: the SDF cell list) in ms per frame, and that
    route on a small box against the CPU; config #5's script on 20,001
-   atoms in frames/s, and its frames 0-7 against the CPU.
+   atoms in frames/s, and its frames 0-7 against the CPU;
+13. `[default]`: the reference's default script (VIAMD src/main.cpp:
+   513-530) over polyala_helix(64, 500 frames) with postprocess: routes,
+   frames/s of three runs, launches a frame, all 500 frames against the
+   CPU;
+14. `[lang]`: the rest of the language over the box (LANG: within and
+   count, com, distance_min, rmsd, 33,334 mapped angles, plane, the RDF):
+   frames/s of three runs with pair_hist's launch count set to 0 before
+   and read after (once a frame), launches a frame, whether frame_fn (and
+   the headline's) waits on the device, each statement's ms/frame alone,
+   `n` against a float64 count on frames 0, 191 and 383, frames 0-7
+   against the CPU.
 
 Ends with a JSON line of kernel results, the `nvidia-smi` name/power-limit
 line, and the JSON status line. Any failure raises (non-zero exit).
@@ -132,6 +143,7 @@ RGB_TOL = 1e-5  # kernel vs plain: powf against torch.pow; all else exact
 TIE_RTOL = 1e-6  # a pick mismatch must be a near-tie |t1 - t2| <= 1e-6 t
 # NVIDIA H100 SXM data sheet: f32 outside the tensor cores, HBM3 bandwidth
 PEAK_F32, PEAK_BYTES = 67e12, 3.35e12
+RAD2DEG = 57.29577951308232
 # f32 operations (an add, multiply, divide, sqrt, rint, max or compare each
 # count one) that each function needs, with work that depends on one operand
 # only counted once per operand. pair_hist on an orthorhombic box, per
@@ -166,6 +178,28 @@ CONFIG5 = (
     "{lin, plan, iso} = shape_weights(all);\n"
 )
 CONFIG1_FRAMES, CONFIG5_WATERS, CONFIG5_FRAMES = 500, 6_667, 1_024
+# the reference's default script (VIAMD src/main.cpp:513-530), verbatim
+DEFAULT = (
+    's1 = resname("ALA")[2:8];\n'
+    "d1 = distance(10,30);\n"
+    'a1 = angle(2,1,3) in resname("ALA");\n'
+    "r = rdf(element('C'), element('H'), 10.0);\n"
+    "v = sdf(s1, element('H'), 10.0);\n"
+    "{lin,plan,iso} = shape_weights(all);\n"
+)
+DEFAULT_RES, DEFAULT_FRAMES = 64, 500
+# the rest of the language over the headline box
+LANG = [
+    "s = residue(1:64);",
+    "n = count(within(3.5, s));",
+    "c = com(s);",
+    "dm = distance_min(s, element('O') and not s);",
+    "rm = rmsd(s);",
+    'a = angle(2, 1, 3) in resname("SOL");',
+    "p = plane(s);",
+    "r = rdf(element('O'), element('O'), 10.0);",
+]
+LANG_ALONE_FRAMES, LANG_CPU_FRAMES, LANG_COUNT_FRAMES = 64, 8, (0, 191, 383)
 # pair_hist's grid in the rhombic dodecahedron at scale 1 and at 0.98
 TRI_DIMS, TRI_GRID = (9, 9, 7), (8, 8, 7)
 # rdf(O, O, 35 Å) on the 100 Å box: under 3 cutoffs, the radius-2 grid
@@ -810,6 +844,226 @@ def other_routes(dev, sys_, traj) -> None:
     ))
 
 
+def launches_per_frame(ev, frames) -> str:
+    """CUDA kernel launches per frame of `ev` over `frames`, from the
+    profiler's launch calls; "not measured" when it records none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ev.run(frames).force()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ev.run(frames).force()
+    n = sum(e.count for e in prof.key_averages()
+            if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
+    return f"{n / len(frames):.1f}" if n else "not measured"
+
+
+def sync_points(fn) -> list:
+    """The places where fn() makes the host wait for the device, as
+    torch.cuda's sync debug mode reports them: ["file:line message", ...]."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sorted({f"{w.filename.rsplit('/', 1)[-1]}:{w.lineno} {str(w.message)[:80]}"
+                   for w in caught if "called a synchronizing" in str(w.message)})
+
+
+def frame_waits(fn) -> float:
+    """Host ms of fn() behind ~100 ms of queued sleep: well under 100 when
+    fn never waits on the device."""
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES * 100)
+    t1 = time.perf_counter()
+    fn()
+    ms = (time.perf_counter() - t1) * 1e3
+    torch.cuda.synchronize()
+    return ms
+
+
+def default_phase(dev) -> None:
+    """[default]: the reference's default script over polyala_helix(64, 500
+    frames) with postprocess (BASELINE config #1's dataset size, 448 atoms,
+    aperiodic) through compile_script → Evaluator on the card: routes,
+    frames/s of three runs, launches a frame; all 500 frames held to the CPU
+    path — r bin for bin, d1 rtol 1e-5 + 1e-4 Å, a1 1e-4 rad, the shape
+    weights 1e-3 and v rtol 1e-3 + 1e-3 of its maximum (the float32
+    closed-form Kabsch of mass-weighted residues, tests/test_torch_script_lang.py)."""
+    t0 = time.perf_counter()
+    sys_, traj = datagen.polyala_helix(DEFAULT_RES, n_frames=DEFAULT_FRAMES)
+    frames, cells = traj.load_frames(range(DEFAULT_FRAMES))
+    res = {}
+    t_card = t_cpu = 0.0
+    for d in (dev, "cpu"):
+        cs = compile_script(DEFAULT, sys_, d)
+        if cs.routes != ["rdf:dense", "sdf:dense"]:
+            raise AssertionError(cs.routes)
+        ev = Evaluator(cs, trajectory_from_numpy(frames, cells, d), chunk=50)
+        t1 = time.perf_counter()
+        if d == dev:
+            ev.run(range(50)).force()
+            times, res[d] = timed_runs_range(ev, None)
+            launches = launches_per_frame(ev, range(8))
+            t_card = time.perf_counter() - t1
+        else:
+            res[d] = ev.run()
+            t_cpu = time.perf_counter() - t1
+    got, want = res[dev], res["cpu"]
+    r_err = hist_err(torch.as_tensor(got.distributions["r"]),
+                     torch.as_tensor(want.distributions["r"]))
+    diffs = {}
+    for k, rtol, atol in (("d1", 1e-5, 1e-4), ("a1", 0.0, 1e-4 * RAD2DEG), ("lin", 0.0, 1e-3),
+                          ("plan", 0.0, 1e-3), ("iso", 0.0, 1e-3)):
+        g, w = got.temporal[k], want.temporal[k]
+        if g.shape != w.shape or g.shape[0] != DEFAULT_FRAMES or not np.isfinite(g).all():
+            raise AssertionError((k, g.shape, w.shape))
+        np.testing.assert_allclose(g, w, rtol=rtol, atol=atol, err_msg=k)
+        diffs[k] = float(np.abs(g - w).max())
+    v, vw = got.volumes["v"], want.volumes["v"]
+    np.testing.assert_allclose(v, vw, rtol=1e-3, atol=1e-3 * np.abs(vw).max())
+    fps = [DEFAULT_FRAMES / t for t in times]
+    phase("default", t0, (
+        f"{sys_.natoms} atoms ({sys_.nbonds} bonds, {sys_.backbone.count} backbone "
+        f"residues), {DEFAULT_FRAMES} frames, routes {cs.routes}: frames/s "
+        f"{' '.join(f'{f:.1f}' for f in fps)} (best {max(fps):.1f}); launches a frame "
+        f"{launches}; all frames vs the CPU: r max bin err {r_err:g}, max diff "
+        + ", ".join(f"{k} {e:.3g}" for k, e in diffs.items())
+        + f", v {float(np.abs(v - vw).max()):.3g} (max {float(vw.max()):.6g}); card "
+        f"{t_card:.2f} s, CPU {t_cpu:.2f} s"
+    ))
+
+
+def count_within64(x: np.ndarray, tgt: np.ndarray, cut: float, box: np.ndarray) -> int:
+    """Atoms within `cut` of any atom of `tgt`, in float64 on the host
+    (periodic KD-tree)."""
+    from scipy.spatial import cKDTree
+
+    xw = np.mod(x.astype(np.float64), box)
+    xw[xw >= box] = 0.0
+    tree = cKDTree(xw[tgt], boxsize=box)
+    return int((np.asarray(tree.query_ball_point(xw, r=cut, return_length=True)) > 0).sum())
+
+
+def lang_phase(dev, sys_, traj, headline) -> int:
+    """[lang]: the rest of the language over the headline box (LANG): routes,
+    frames/s of three runs with pair_hist's launch count set to 0 before and
+    read after, launches a frame, whether frame_fn waits on the device, each
+    statement's ms/frame alone over 64 frames, `n` against a float64 count
+    on three frames (exact), and frames 0-7 against the CPU path (r, whose
+    CPU route is the all-pairs histogram, against that function on the
+    card). `headline`: the `[main]` Evaluator, whose frame_fn's waits on
+    the device are counted too. → pair_hist launches of the timed runs."""
+    t0 = time.perf_counter()
+    src = "\n".join(LANG) + "\n"
+    t1 = time.perf_counter()
+    cs = compile_script(src, sys_, dev)
+    t_compile = time.perf_counter() - t1
+    if cs.routes != ["rdf:cell_list"]:
+        raise AssertionError(cs.routes)
+    ev = Evaluator(cs, traj, chunk=CHUNK)
+    ev.run(range(CHUNK)).force()
+    n_frames = traj.num_frames
+    cuda_rdf.launches = 0
+    times, res = timed_runs_range(ev, None)
+    launches = cuda_rdf.launches  # read just after the timed runs
+    if launches != 3 * n_frames:
+        raise AssertionError(f"pair_hist launched {launches} times in 3 runs of {n_frames} frames")
+    per_frame = launches_per_frame(ev, range(min(8, n_frames)))
+    x0, b0 = traj.device_frame(0)
+    inv0 = inv_basis_of(b0)
+    ev.script.frame_fn(x0, b0, inv0)
+    syncs = sync_points(lambda: ev.script.frame_fn(x0, b0, inv0))
+    head_syncs = sync_points(lambda: headline.script.frame_fn(x0, b0, inv0))
+    wait_ms = frame_waits(lambda: ev.script.frame_fn(x0, b0, inv0))
+    if syncs or wait_ms > 80.0:
+        waits = {}  # statement by statement, to name the culprits
+        for stmt in LANG[1:]:
+            one = Evaluator(compile_script(LANG[0] + "\n" + stmt, sys_, dev), traj).script
+            one.frame_fn(x0, b0, inv0)
+            waits[stmt] = (frame_waits(lambda: one.frame_fn(x0, b0, inv0)),
+                           sync_points(lambda: one.frame_fn(x0, b0, inv0)))
+        raise AssertionError(f"frame_fn took {wait_ms:.1f} ms behind 100 ms of queued "
+                             f"sleep; it waits on the device at {syncs}; alone: {waits}; "
+                             f"the headline's frame_fn at {head_syncs}")
+    shapes = {k: res.temporal[k].shape for k in ("n", "c", "dm", "rm", "a", "p")}
+    n_a = int((sys_.element == 8).sum())
+    want_shapes = {"n": (n_frames, 1), "c": (n_frames, 3), "dm": (n_frames, 1),
+                   "rm": (n_frames, 1), "a": (n_frames, n_a), "p": (n_frames, 4)}
+    if shapes != want_shapes:
+        raise AssertionError((shapes, want_shapes))
+    for k in shapes:
+        if not np.isfinite(res.temporal[k]).all():
+            raise AssertionError(k)
+    # n against a float64 count
+    box = np.asarray(sys_.cell.extent(), np.float64)
+    tgt = np.arange(int(sys_.res_offsets[0]), int(sys_.res_offsets[64]))
+    counts = []
+    for f in LANG_COUNT_FRAMES:
+        x = traj.stack[f].cpu().numpy()
+        want = count_within64(x, tgt, 3.5, box)
+        if res.temporal["n"][f, 0] != want:
+            raise AssertionError(f"frame {f}: n {res.temporal['n'][f, 0]} vs float64 {want}")
+        counts.append(want)
+    # frames 0-7 against the CPU path
+    t_cpu = time.perf_counter()
+    frames = traj.stack[:LANG_CPU_FRAMES].cpu().numpy()
+    cells = traj.cells[:LANG_CPU_FRAMES].cpu().numpy()
+    cpu_src = "\n".join(st for st in LANG if not st.startswith("r ")) + "\n"
+    cpu = Evaluator(compile_script(cpu_src, sys_, "cpu"),
+                    trajectory_from_numpy(frames, cells, "cpu"), chunk=4).run()
+    gpu = ev.run(range(LANG_CPU_FRAMES))
+    diffs = {}
+    for k, rtol, atol in (("n", 0.0, 0.0), ("c", 1e-5, 1e-4), ("dm", 1e-5, 1e-4),
+                          ("rm", 0.0, 1e-3), ("a", 0.0, 1e-4 * RAD2DEG), ("p", 0.0, 1e-3)):
+        g, w = gpu.temporal[k], cpu.temporal[k]
+        np.testing.assert_allclose(g, w, rtol=rtol, atol=atol, err_msg=k)
+        diffs[k] = float(np.abs(g - w).max())
+    idx_o = torch.as_tensor(np.nonzero(sys_.element == 8)[0], device=dev)
+    ones = torch.ones(idx_o.shape[0], device=dev)
+    r_errs = []
+    for f in (0, LANG_CPU_FRAMES - 1):
+        x, b = traj.device_frame(f)
+        _, acc = ev.script.frame_fn(x, b, inv_basis_of(b))
+        r_errs.append(hist_err(acc["r"], pair_dist_histogram_scatter_idx(
+            x, idx_o, idx_o, ones, ones, b, inv_basis_of(b), NBINS, R_MAX)))
+    t_cpu = time.perf_counter() - t_cpu
+    # each statement alone (after `s`), over 64 frames
+    t_alone = time.perf_counter()
+    alone = []
+    for stmt in LANG:
+        one = compile_script(stmt if stmt == LANG[0] else LANG[0] + "\n" + stmt, sys_, dev)
+        ev1 = Evaluator(one, traj, chunk=CHUNK)
+        frames1 = range(LANG_ALONE_FRAMES)
+        ev1.run(range(4)).force()
+        t1 = time.perf_counter()
+        ev1.run(frames1).force()
+        alone.append((stmt.split("=")[0].strip(), (time.perf_counter() - t1) * 1e3 / LANG_ALONE_FRAMES))
+    t_alone = time.perf_counter() - t_alone
+    fps = [n_frames / t for t in times]
+    phase("lang", t0, (
+        f"{sys_.natoms} atoms x {n_frames} frames, chunk {CHUNK}, routes {cs.routes}, "
+        f"compile {t_compile:.2f} s: frames/s {' '.join(f'{f:.1f}' for f in fps)} (best "
+        f"{max(fps):.1f}); pair_hist launches {launches} in 3 runs; launches a frame "
+        f"{per_frame}; frame_fn behind 100 ms of queued sleep {wait_ms:.2f} ms, sync "
+        f"points {len(syncs)} (the headline's frame_fn: {len(head_syncs)}"
+        + (f", at {head_syncs}" if head_syncs else "") + "); ms/frame "
+        f"alone over {LANG_ALONE_FRAMES} frames (each after s): "
+        + ", ".join(f"{k} {ms:.3f}" for k, ms in alone)
+        + f" | n vs float64 on frames {LANG_COUNT_FRAMES}: {counts} (equal); frames "
+        f"0-{LANG_CPU_FRAMES - 1} vs the CPU: max diff "
+        + ", ".join(f"{k} {e:.3g}" for k, e in diffs.items())
+        + f"; r vs all pairs max bin err {max(r_errs):g}; the CPU comparison "
+        f"{t_cpu:.2f} s, the statements alone {t_alone:.2f} s"
+    ))
+    return launches
+
+
 def main() -> None:
     # -- 1. device ---------------------------------------------------------
     t0 = time.perf_counter()
@@ -1144,6 +1398,10 @@ def main() -> None:
     launches_tri = main_tri(dev, tri, idx_o)
     r2 = kernel_r2(dev, sys_, traj, idx_o, idx_b)
     other_routes(dev, sys_, traj)
+
+    # -- 13.-14. the reference's default script, the rest of the language
+    default_phase(dev)
+    lang_phase(dev, sys_, traj, ev)
 
     print(json.dumps({"kernels": [
         {

@@ -158,9 +158,9 @@ def test_config5_script_matches_jax():
 @pytest.mark.parametrize(
     "src, match",
     [
-        ("d = distance(element('O'), element('H'));", "'distance' of positions"),
-        ("a = angle(residue(1), 2, 3);", "'angle' of positions"),
-        ("t = dihedral(1, 2, 3, all);", "'dihedral' of positions"),
+        ("d = distance(element('O'), 'H');", "expected an atom index, selection, or position"),
+        ("a = angle(residue(1), 2, 3) in residues;", "inside 'in' must be used by a mappable"),
+        ("t = dihedral(1, 2, 3, 9) in residue(1);", "relative atom index 9 out of range"),
         ("a = angle(1, 2);", "expected 3 atom indices"),
         ("d = distance(1, 2, 3);", r"distance\(a, b\)"),
         ("d = distance(0, 5);", "out of range"),

@@ -19,7 +19,9 @@ bad = sorted(m for m in sys.modules
              or m == "viamd_tpu" or m.startswith("viamd_tpu."))
 print(len(names), bad)
 for mod in ("ops.cuda_rdf", "render.camera", "render.color", "render.cuda_raster",
-            "render.raster", "render.hbao", "render.fxaa", "render.postprocess"):
+            "render.raster", "render.hbao", "render.fxaa", "render.postprocess",
+            "ops.bonds", "ops.geometry", "ops.com", "ops.covariance", "ops.rmsd",
+            "ops.pbc", "ops.rdf", "core.system", "script.compiler", "script.filterlang"):
     assert "viamd_tpu_torch." + mod in names, (mod, names)
 assert not bad, bad
 """

@@ -1,7 +1,7 @@
 """Molecular system data model — numpy copy of viamd_tpu.core.system
-(`System`, `build_system`, the structural flags). The element/bond
-inference pass (`postprocess`) and instance tables are not carried over;
-generators set elements, masses and flags directly.
+(`System`, `build_system`, the structural flags, and `postprocess`: element,
+radius and mass inference, residue flags, bond inference through
+ops.bonds, backbone detection). Instance tables are not carried over.
 
 Mirror of mdlib's md_system_t (reference capability surface:
 SoA atom arrays x/y/z/flags + atom types, bonds, residues ("components"),
@@ -279,3 +279,125 @@ def build_system(
         bfactor=bfactor,
         velocity=velocity,
     )
+
+
+def postprocess(sys: System, infer_bonds: bool = True) -> System:
+    """Element/radius/mass inference, structural flags, bonds, backbone.
+
+    Capability mirror of md_util_system_postprocess
+    (VIAMD src/viamd.cpp:690-692). Mutates and returns `sys`.
+    """
+    n = sys.natoms
+    if n == 0:
+        return sys
+    res_name_per_atom = [
+        sys.res_names[i] for i in sys.atom_res_name_id()
+    ]
+    # element inference where missing
+    if not sys.element.any() or (sys.element == 0).any():
+        z = sys.element.copy()
+        for i in np.nonzero(z == 0)[0]:
+            z[i] = elem.infer_element(
+                sys.atom_names[sys.atom_name_id[i]], res_name_per_atom[i]
+            )
+        sys.element = z
+    sys.radius = elem.VDW_RADII[sys.element].astype(np.float32)
+    sys.mass = elem.MASSES[sys.element].astype(np.float32)
+
+    # structural flags from residue names
+    flags = np.zeros(n, np.uint32)
+    rn_upper = np.array([s.upper() for s in sys.res_names.labels])
+    res_flags = np.zeros(len(rn_upper), np.uint32)
+    for i, s in enumerate(rn_upper):
+        f = 0
+        if s in _WATER_RES:
+            f |= FLAG_WATER
+        elif s in _ION_RES:
+            f |= FLAG_ION
+        elif s in _AMINO_RES:
+            f |= FLAG_AMINO
+        elif s in _NUCLEIC_RES:
+            f |= FLAG_NUCLEIC
+        else:
+            f |= FLAG_HETERO
+        res_flags[i] = f
+    flags |= res_flags[sys.atom_res_name_id()]
+    sys.flags = flags
+
+    if infer_bonds and sys.nbonds == 0:
+        from viamd_tpu_torch.ops.bonds import infer_covalent_bonds
+
+        sys.bonds = infer_covalent_bonds(
+            sys.coords(), sys.element, sys.cell
+        )
+
+    _detect_backbone(sys)
+    _flag_backbone_atoms(sys)
+    return sys
+
+
+def _detect_backbone(sys: System):
+    """Find N/CA/C/O atoms per amino residue; group consecutive ones."""
+    want = {"N": 0, "CA": 1, "C": 2, "O": 3}
+    nres = sys.nres
+    slots = np.full((nres, 4), -1, np.int32)
+    amino = np.zeros(nres, bool)
+    res_flag_amino = np.array(
+        [
+            sys.res_names[rid].upper() in _AMINO_RES
+            for rid in sys.res_name_id
+        ]
+    )
+    for r in np.nonzero(res_flag_amino)[0]:
+        beg, end = sys.res_offsets[r], sys.res_offsets[r + 1]
+        for a in range(beg, end):
+            nm = sys.atom_names[sys.atom_name_id[a]].upper()
+            if nm in want and slots[r, want[nm]] < 0:
+                slots[r, want[nm]] = a
+            elif nm == "OT1" and slots[r, 3] < 0:  # terminal oxygen variants
+                slots[r, 3] = a
+        amino[r] = (slots[r, :3] >= 0).all()  # O may be missing at C-term
+
+    bb_res = np.nonzero(amino)[0].astype(np.int32)
+    if not bb_res.size:
+        sys.backbone = None
+        return
+    # contiguous runs of residue indices within the same chain
+    ranges = []
+    run_start = 0
+    res_chain = np.array(
+        [sys.atom_chain_idx[sys.res_offsets[r]] for r in bb_res]
+    )
+    for i in range(1, bb_res.size + 1):
+        if (
+            i == bb_res.size
+            or bb_res[i] != bb_res[i - 1] + 1
+            or res_chain[i] != res_chain[i - 1]
+        ):
+            if i - run_start >= 2:  # a backbone needs ≥2 residues
+                ranges.append((run_start, i))
+            run_start = i
+    if not ranges:
+        sys.backbone = None
+        return
+    sys.backbone = Backbone(
+        res_idx=bb_res,
+        atom_n=slots[bb_res, 0],
+        atom_ca=slots[bb_res, 1],
+        atom_c=slots[bb_res, 2],
+        atom_o=slots[bb_res, 3],
+        ranges=np.array(ranges, np.int32),
+    )
+
+
+def _flag_backbone_atoms(sys: System):
+    if sys.backbone is None:
+        return
+    bb = sys.backbone
+    for arr in (bb.atom_n, bb.atom_ca, bb.atom_c, bb.atom_o):
+        valid = arr[arr >= 0]
+        sys.flags[valid] |= FLAG_BACKBONE
+    # sidechain = amino atoms not flagged backbone
+    amino = (sys.flags & FLAG_AMINO) != 0
+    not_bb = (sys.flags & FLAG_BACKBONE) == 0
+    sys.flags[amino & not_bb] |= FLAG_SIDECHAIN

@@ -5,8 +5,8 @@ seed gives the same system and frames as the JAX package); for
 `water_box_device` the frame noise is drawn on the device with a
 `torch.Generator`, whose stream differs from JAX's threefry — compare the
 two packages on shared numpy frames, not on these. `polyala_helix` is a
-numpy copy too. `render_inputs` is the molecule-render scene of the JAX
-package's benchmark for a system.
+numpy copy too, `postprocess` included. `render_inputs` is the
+molecule-render scene of the JAX package's benchmark for a system.
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from viamd_tpu_torch.core import elements as E
-from viamd_tpu_torch.core.system import FLAG_WATER, System, build_system
+from viamd_tpu_torch.core.system import FLAG_WATER, System, build_system, postprocess
 from viamd_tpu_torch.core.unitcell import UnitCell
 from viamd_tpu_torch.io.trajectory import DeviceTrajectory, InMemoryTrajectory
 
@@ -123,9 +123,8 @@ def polyala_helix(
     """Ideal poly-alanine α-helix (N/H/CA/HA/C/O/CB per residue) and
     jittered frames, aperiodic: the JAX package's stand-in for 1ALA-500
     (BASELINE config #1), the same seed giving the same coordinates,
-    elements, residues and frames. Radii and masses come from the element
-    tables; flags, bonds and the backbone, which the JAX package's
-    `postprocess` infers, stay empty (that pass is not ported)."""
+    elements, residues and frames. `postprocess` infers radii, masses,
+    flags, bonds and the backbone, as in the JAX package."""
     rng = np.random.RandomState(seed)
     template = [
         ("N", 7), ("H", 1), ("CA", 6), ("HA", 1), ("C", 6), ("O", 8),
@@ -153,8 +152,7 @@ def polyala_helix(
         elements_z=np.asarray(zs, np.int32),
         cell=UnitCell.none(),
     )
-    sys.radius = E.VDW_RADII[sys.element].astype(np.float32)
-    sys.mass = E.MASSES[sys.element].astype(np.float32)
+    sys = postprocess(sys)
     frames = coords[None] + rng.normal(scale=0.08, size=(n_frames, n, 3))
     return sys, InMemoryTrajectory(frames.astype(np.float32))
 

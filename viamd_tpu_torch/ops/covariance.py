@@ -37,7 +37,9 @@ def covariance_matrix(
 
 def _unit(axis: int, like: torch.Tensor) -> torch.Tensor:
     e = torch.zeros_like(like)
-    e[..., axis] = 1.0
+    # fill_, not `e[..., axis] = 1.0`: on CUDA that assignment copies a
+    # host scalar and waits for the device
+    e.select(-1, axis).fill_(1.0)
     return e
 
 
@@ -127,3 +129,29 @@ def shape_weights(
         ],
         dim=-1,
     )
+
+
+def principal_axes(
+    x: torch.Tensor,
+    weights: torch.Tensor,
+    basis: torch.Tensor,
+    inv_basis: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(com (..., 3), eigvals descending (..., 3), eigvecs (..., 3, 3) as
+    columns) of the weighted gyration tensor."""
+    c = com(x, weights, basis, inv_basis)
+    C = covariance_matrix(x, weights, c, basis, inv_basis)
+    vals, vecs = eigh3x3(C)
+    return c, vals, vecs
+
+
+def gyration_radius(
+    x: torch.Tensor,
+    weights: torch.Tensor,
+    basis: torch.Tensor,
+    inv_basis: torch.Tensor,
+) -> torch.Tensor:
+    """sqrt(trace) of the weighted gyration tensor → (...)."""
+    c = com(x, weights, basis, inv_basis)
+    C = covariance_matrix(x, weights, c, basis, inv_basis)
+    return torch.sqrt(C.diagonal(dim1=-2, dim2=-1).sum(-1).clamp_min(0.0))

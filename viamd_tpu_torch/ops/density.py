@@ -12,8 +12,10 @@ from __future__ import annotations
 
 import torch
 
+from viamd_tpu_torch.ops.neighbors import device_ints
+
 # the 8 trilinear corners as (ox, oy, oz) ∈ {0, 1}³
-_CORNERS = [((c >> 2) & 1, (c >> 1) & 1, c & 1) for c in range(8)]
+_CORNERS = tuple(((c >> 2) & 1, (c >> 1) & 1, c & 1) for c in range(8))
 
 
 def splat_trilinear(
@@ -37,9 +39,9 @@ def splat_trilinear(
     g0 = torch.floor(g)
     f = g - g0
     i0 = g0.to(torch.int64)
-    offs = torch.tensor(_CORNERS, dtype=torch.int64, device=pts.device)  # (8, 3)
+    offs = device_ints(_CORNERS, pts.device)  # (8, 3)
     idx3 = i0[None, :, :] + offs[:, None, :]  # (8, n, 3)
-    dims_t = torch.tensor(dims, dtype=torch.int64, device=pts.device)
+    dims_t = device_ints(tuple(dims), pts.device)
     inb = ((idx3 >= 0) & (idx3 < dims_t)).all(dim=-1)  # (8, n)
     tent = torch.where(offs[:, None, :] == 1, f[None], 1.0 - f[None])  # (8,n,3)
     wts = tent[..., 0] * tent[..., 1] * tent[..., 2] * w[None, :]

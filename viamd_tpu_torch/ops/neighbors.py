@@ -16,10 +16,20 @@ package's `sdf_accumulate_cl` and triclinic RDF do.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+
+@functools.lru_cache(maxsize=None)
+def device_ints(values: tuple, device: torch.device) -> torch.Tensor:
+    """An int64 tensor of `values` (nested tuples of ints) on `device`, made
+    once: a tensor made from host data on each frame is a copy from
+    pageable memory, which waits for the device's queue to drain. Callers
+    must not write to it."""
+    return torch.tensor(values, dtype=torch.int64, device=device)
 
 
 @dataclass(frozen=True)
@@ -126,7 +136,7 @@ def frac_coords(x: torch.Tensor, inv_basis: torch.Tensor) -> torch.Tensor:
 def cell3_of_points(pts: torch.Tensor, box: torch.Tensor, dims: tuple) -> torch.Tensor:
     """(Q, 3) int64 cell coordinates of query points (viamd_tpu's
     `cell3_of_points`): wrapped into [0, 1) of `box`, clamped to the grid."""
-    dims_t = torch.tensor(dims, dtype=torch.int64, device=pts.device)
+    dims_t = device_ints(tuple(dims), pts.device)
     frac = pts / box
     frac = frac - torch.floor(frac)
     c3 = (frac * dims_t.to(pts.dtype)).to(torch.int64)
@@ -137,7 +147,7 @@ def candidate_cells(cell3: torch.Tensor, offsets: torch.Tensor, dims: tuple) -> 
     """(Q, S3) flat ids of the cells at `offsets` (S3, 3) around each query
     cell `cell3` (Q, 3), wrapped periodically (viamd_tpu's
     `candidate_cells`, with the stencil passed in)."""
-    dims_t = torch.tensor(dims, dtype=torch.int64, device=cell3.device)
+    dims_t = device_ints(tuple(dims), cell3.device)
     c = torch.remainder(cell3[:, None, :] + offsets[None, :, :].to(torch.int64), dims_t)
     return (c[..., 0] * dims[1] + c[..., 1]) * dims[2] + c[..., 2]
 
@@ -149,7 +159,7 @@ def cell_ids(x: torch.Tensor, box: torch.Tensor, dims: tuple) -> torch.Tensor:
     atoms out of the box, as viamd_tpu/ops/pallas_rdf.py:517-520 handles),
     then binned with the same float ops as the JAX package's
     build_cell_list, so both packages put every atom in the same cell."""
-    dims_t = torch.tensor(dims, dtype=torch.int64, device=x.device)
+    dims_t = device_ints(tuple(dims), x.device)
     xw = x - box * torch.floor(x / box)
     frac = xw / box
     frac = frac - torch.floor(frac)

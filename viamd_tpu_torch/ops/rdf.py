@@ -135,6 +135,30 @@ def pair_dist_histogram_scatter_idx(
     return hist[:nbins]
 
 
+def pair_dist_histogram_dynamic(
+    x: torch.Tensor,
+    idx_a: torch.Tensor,
+    idx_b: torch.Tensor,
+    w_a: torch.Tensor,
+    w_b: torch.Tensor,
+    basis: torch.Tensor,
+    inv_basis: torch.Tensor,
+    nbins: int,
+    r_max: float,
+) -> torch.Tensor:
+    """One frame's histogram of a dynamic selection's rdf, normalised by the
+    frame's own pair count: `pair_dist_histogram_scatter_idx` with this
+    frame's 0/1 weights (a dynamic side passes every atom and its per-frame
+    mask), divided by max(Σw_a · Σw_b, 1) — the JAX compiler's per-frame
+    normalisation (viamd_tpu/script/compiler.py:1374-1400), computed on the
+    device."""
+    hist = pair_dist_histogram_scatter_idx(
+        x, idx_a, idx_b, w_a, w_b, basis, inv_basis, nbins, r_max
+    )
+    pairs = w_a.to(torch.float32).sum() * w_b.to(torch.float32).sum()
+    return hist / pairs.clamp_min(1.0)
+
+
 def rdf_normalize(
     hist: torch.Tensor,
     count_a: float,

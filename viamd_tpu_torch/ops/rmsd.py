@@ -79,3 +79,20 @@ def align_frame(
     c = com(x, w, basis, inv_basis)
     p = min_image(x - c[..., None, :], basis, inv_basis)
     return kabsch_rotation(p, ref_centered, w), c
+
+
+def rmsd(
+    p: torch.Tensor, q: torch.Tensor, w: torch.Tensor, align: bool = True
+) -> torch.Tensor:
+    """Weighted RMSD between point sets p, q (..., k, 3) with weights
+    (..., k), after optimal (Kabsch) superposition when `align`. Batched:
+    S structures padded to k atoms with zero weights give (S,)."""
+    w = w.to(p.dtype)
+    wsum = w.sum(-1).clamp_min(1e-30)[..., None]
+    pc = p - ((p * w[..., None]).sum(-2) / wsum)[..., None, :]
+    qc = q - ((q * w[..., None]).sum(-2) / wsum)[..., None, :]
+    if align:
+        R = kabsch_rotation(pc, qc, w)
+        pc = pc @ R.mT
+    d = pc - qc
+    return torch.sqrt(((d * d).sum(-1) * w).sum(-1) / wsum[..., 0])
