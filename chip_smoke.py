@@ -29,8 +29,12 @@ compose, FXAA 3.11). Phases, one result line each:
    kernel's device time against its bound, its wrapper's host time behind
    a queued sleep (fails if the launch waits on the device), the route and
    the plain times;
-4. the analysis path: warm-up, then three timed runs over all frames, with
-   the kernels' launch counts set to 0 before and read after;
+4. the analysis path: warm-up, then six timed runs over all frames, with
+   the kernels' launch counts set to 0 before and read after: three with
+   the port's fixed-point SDF splat sum, three with a float `index_add_`
+   in its place, in turns (fixed, index_add_, index_add_, fixed, fixed,
+   index_add_), two fixed-point runs' grids equal; and both splat sums'
+   device time on frame 0's terms;
 5. its output against references: the per-frame RDF against the plain
    histogram, and the whole script on a small box against the CPU;
 6. the culled raster kernel against its unculled plain version on the
@@ -81,7 +85,17 @@ compose, FXAA 3.11). Phases, one result line each:
    and read after (once a frame), launches a frame, whether frame_fn (and
    the headline's) waits on the device, each statement's ms/frame alone,
    `n` against a float64 count on frames 0, 191 and 383, frames 0-7
-   against the CPU.
+   against the CPU;
+15. `[io]`: the headline box written by the port's writers as a `.gro`
+   and a precision-1000 `.xtc` under `.chip_scratch/` (removed at the
+   end), opened with `io.load_file` twice (decode + `.vtraj` transcode,
+   then the sidecar) and evaluated staged (`DeviceTrajectory.stage`),
+   streamed from the sidecar and streamed from the `.xtc` itself
+   (`cache=False`): frames/s, launch counts, the streamed results equal to
+   the staged one bit for bit, frames 0 and 383 against all pairs, the
+   streamed staging step's sync points and host time behind 100 ms of
+   queued sleep, an interrupted run saved, loaded and resumed, and
+   `import` of a 384-row `.xvg`.
 
 Ends with a JSON line of kernel results, the `nvidia-smi` name/power-limit
 line, and the JSON status line. Any failure raises (non-zero exit).
@@ -92,9 +106,13 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
+import shutil
 import statistics
 import subprocess
+import tempfile
 import time
+from pathlib import Path
 from unittest import mock
 
 import numpy as np
@@ -102,11 +120,14 @@ import torch
 
 from viamd_tpu_torch import cuda_build, datagen
 from viamd_tpu_torch.datagen import water_box, water_box_device
-from viamd_tpu_torch.eval import Evaluator
+from viamd_tpu_torch.eval import Evaluator, load_checkpoint, save_checkpoint
 from viamd_tpu_torch.interop import trajectory_from_numpy
+from viamd_tpu_torch.io import load_file
 from viamd_tpu_torch.io.trajectory import DeviceTrajectory
+from viamd_tpu_torch.io.xtc import write_xtc
+from viamd_tpu_torch.io.xvg import read_xvg, write_xvg
 from viamd_tpu_torch.core.unitcell import UnitCell
-from viamd_tpu_torch.ops import cuda_rdf
+from viamd_tpu_torch.ops import cuda_rdf, density
 from viamd_tpu_torch.ops import sdf as sdf_ops
 from viamd_tpu_torch.ops.neighbors import (
     choose_grid,
@@ -204,6 +225,12 @@ LANG_ALONE_FRAMES, LANG_CPU_FRAMES, LANG_COUNT_FRAMES = 64, 8, (0, 191, 383)
 TRI_DIMS, TRI_GRID = (9, 9, 7), (8, 8, 7)
 # rdf(O, O, 35 Å) on the 100 Å box: under 3 cutoffs, the radius-2 grid
 R2_CUTOFF, R2_DIMS, R2_FRAMES = 35.0, (5, 5, 5), 64
+# [main]'s timed runs: the fixed-point splat sum and a float index_add_ in turns
+MAIN_SPLAT_ORDER = ("fixed", "index_add_", "index_add_", "fixed", "fixed", "index_add_")
+# [io]: the headline box written to .gro + .xtc, streamed 16 frames a chunk,
+# a run interrupted after 12 chunks; the float32 reordering of 24 chunk sums
+IO_CHUNK, IO_STOP_CHUNKS, IO_RTOL = 16, 12, 4e-6
+SCRATCH = Path(__file__).resolve().parent / ".chip_scratch"
 
 
 def host_ms(fn, reps: int = 20, queued: bool = False) -> float:
@@ -1064,6 +1091,217 @@ def lang_phase(dev, sys_, traj, headline) -> int:
     return launches
 
 
+def write_gro(path, sys_, x: np.ndarray, title: str = "viamd_tpu_torch water box") -> None:
+    """A GROMACS .gro of `sys_` at coordinates `x` (Å): the fixed columns
+    `%5d%-5s%5s%5d%8.3f%8.3f%8.3f` in nm, residue and atom serials mod
+    100,000, then the box line (`%10.5f`, nm; the three extents, or all
+    nine components of a triclinic cell)."""
+    rid = sys_.atom_res_id() % 100_000
+    rname = [sys_.res_names[i] for i in sys_.atom_res_name_id()]
+    aname = [sys_.atom_names[i] for i in sys_.atom_name_id]
+    xn = np.asarray(x, np.float64) / 10.0
+    lines = [title, f"{sys_.natoms:5d}"]
+    lines += [
+        f"{r:5d}{rn:<5.5s}{an:>5.5s}{(i + 1) % 100_000:5d}{a:8.3f}{b:8.3f}{c:8.3f}"
+        for i, (r, rn, an, (a, b, c)) in enumerate(zip(rid, rname, aname, xn.tolist()))
+    ]
+    v = np.asarray(sys_.cell.basis, np.float64) / 10.0
+    box = [v[0, 0], v[1, 1], v[2, 2]]
+    if sys_.cell.is_periodic and not sys_.cell.is_orthorhombic:
+        box += [v[0, 1], v[0, 2], v[1, 0], v[1, 2], v[2, 0], v[2, 1]]
+    lines.append("".join(f"{b:10.5f}" for b in box))
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def equal_results(a, b) -> list:
+    """The properties in which two EvalResults differ in any bit: every
+    temporal value, distribution and volume."""
+    bad = [k for k in a.temporal if not np.array_equal(a.temporal[k], b.temporal[k])]
+    bad += [k for k in a.distributions if not np.array_equal(a.distributions[k], b.distributions[k])]
+    bad += [k for k in a.volumes if not np.array_equal(a.volumes[k], b.volumes[k])]
+    return bad
+
+
+def io_phase(dev, n_waters: int = N_WATERS, n_frames: int = N_FRAMES,
+             chunk: int = IO_CHUNK, stop_chunks: int = IO_STOP_CHUNKS,
+             headline: "Evaluator | None" = None) -> dict:
+    """[io]: the analysis path with its input read from files, through the
+    entry points a user calls: the headline box (datagen.water_box on the
+    host) written as .gro + .xtc, `load_file` of both (the first .xtc open
+    decodes and transcodes a .vtraj sidecar, the second opens it),
+    compile_script → Evaluator staged, streamed from the sidecar and
+    streamed from the .xtc; checks as the docstring of this file lists.
+    `headline`: the `[main]` Evaluator (the same script over the device-
+    generated box, chunk 64), timed once here beside the staged runs.
+    → {"launches": pair_hist launches of the timed runs, "fps": their
+    frames/s by trajectory}."""
+    t0 = time.perf_counter()
+    SCRATCH.mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="io-", dir=SCRATCH))
+    try:
+        return _io_phase(dev, n_waters, n_frames, chunk, stop_chunks, headline, work, t0)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _io_phase(dev, n_waters, n_frames, chunk, stop_chunks, headline, work: Path, t0) -> dict:
+    # -- 1. the input files
+    t1 = time.perf_counter()
+    sys0, traj0 = water_box(n_waters, n_frames=n_frames, seed=SEED)
+    frames0, _ = traj0.load_frames(range(n_frames))
+    t_gen = time.perf_counter() - t1
+    gro, xtc = str(work / "box.gro"), str(work / "box.xtc")
+    t1 = time.perf_counter()
+    write_gro(gro, sys0, sys0.coords())
+    t_gro = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    write_xtc(xtc, frames0, sys0.cell, precision=1000.0)
+    t_xtc = time.perf_counter() - t1
+    del frames0, traj0
+    mib = {p: os.path.getsize(p) / 2**20 for p in (gro, xtc)}
+    # -- 2. load
+    t1 = time.perf_counter()
+    system = load_file(gro).system
+    t_gro_open = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    first = load_file(xtc, system=system)
+    t_first = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    packed = load_file(xtc, system=system).trajectory
+    t_second = time.perf_counter() - t1
+    raw = load_file(xtc, system=system, cache=False).trajectory
+    kinds = [type(t).__name__ for t in (first.trajectory, packed, raw)]
+    if kinds != ["PackedTrajectory", "PackedTrajectory", "XTCTrajectory"]:
+        raise AssertionError(kinds)
+    mib["box.xtc.vtraj"] = os.path.getsize(xtc + ".vtraj") / 2**20
+    sel = compile_script("o = element('O');\nh = element('H');\n", system, dev).selections
+    for name, z in (("o", 8), ("h", 1)):
+        want = np.nonzero(sys0.element == z)[0]
+        if not np.array_equal(sel[name].mask.indices(), want):
+            raise AssertionError(f"element({name!r}) selects {sel[name].mask.popcount()} "
+                                 f"atoms of the .gro, datagen has {want.size}")
+    if packed.num_frames != n_frames or packed.num_atoms != sys0.natoms:
+        raise AssertionError((packed.num_frames, packed.num_atoms))
+    # -- 3. evaluate: staged, streamed from the sidecar, streamed from the .xtc
+    t1 = time.perf_counter()
+    cs = compile_script(HEADLINE, system, dev)
+    t_compile = time.perf_counter() - t1
+    if cs.routes != ["rdf:cell_list", "sdf:pairs"]:
+        raise AssertionError(cs.routes)
+    t1 = time.perf_counter()
+    staged = DeviceTrajectory.stage(packed, dev)
+    staged.stack[-1, -1].sum().item()  # the staging copy has landed
+    t_stage = time.perf_counter() - t1
+    runs, results, launches = {}, {}, {}
+    for name, traj, n_runs in (("staged", staged, 2), ("streamed", packed, 2),
+                               ("xtc", raw, 1)):
+        ev = Evaluator(cs, traj, chunk=chunk)
+        if name == "staged":
+            ev.run().force()  # warm-up (the frame function is shared)
+        cuda_rdf.launches = 0
+        runs[name], results[name] = timed_runs_range(ev, None, n_runs)
+        launches[name] = cuda_rdf.launches  # read just after the timed runs
+        if launches[name] != n_runs * n_frames:
+            raise AssertionError(f"{name}: pair_hist launched {launches[name]} times in "
+                                 f"{n_runs} runs of {n_frames} frames")
+        if name == "staged" and headline is not None:
+            main_fps = headline.traj.num_frames / timed_runs_range(headline, None, 1)[0][0]
+    # -- 4. the results: streamed equal to staged, r against all pairs
+    for name in ("streamed", "xtc"):
+        bad = equal_results(results[name], results["staged"])
+        if bad:
+            raise AssertionError(f"{name} differs from staged in {bad}")
+    res = results["staged"]
+    for k in ("lin", "plan", "iso"):
+        if res.temporal[k].shape != (n_frames, 1) or not np.isfinite(res.temporal[k]).all():
+            raise AssertionError(k)
+    if not (res.distributions["r"].sum() > 0 and res.volumes["v"].sum() > 0):
+        raise AssertionError("empty r or v")
+    ev_s = Evaluator(cs, staged, chunk=chunk)
+    idx_o = torch.as_tensor(np.nonzero(system.element == 8)[0], device=dev)
+    r_errs = []
+    for f in (0, n_frames - 1):
+        x, b = staged.device_frame(f)
+        inv = inv_basis_of(b)
+        _, acc = ev_s.script.frame_fn(x, b, inv)
+        r_errs.append(hist_err(acc["r"], all_pairs(x, idx_o, idx_o, b, inv)))
+    # -- 5. the streamed staging step never waits on the device
+    ev = Evaluator(cs, packed, chunk=chunk)
+    stream = ev.stream()
+    stream.start([np.arange(i, min(i + chunk, n_frames)) for i in range(0, 3 * chunk, chunk)])
+    try:
+        stream.next()
+        stream.ready()
+        syncs = sync_points(stream.next)
+        stream.ready()
+        stage_ms = frame_waits(stream.next)
+    finally:
+        stream.close()
+    if syncs or stage_ms >= 100.0:
+        raise AssertionError(f"the staging step waits: {syncs}, {stage_ms:.2f} ms behind "
+                             "100 ms of queued sleep")
+    # -- 6. interrupt after `stop_chunks` chunks, checkpoint, resume
+    state = {"done": 0.0}
+    part = ev.run(progress=lambda f: state.update(done=f),
+                  interrupt=lambda: state["done"] >= stop_chunks * chunk / n_frames)
+    if not part.interrupted or part.n_frames_done != stop_chunks * chunk:
+        raise AssertionError((part.interrupted, part.n_frames_done))
+    ckpt = str(work / "part.npz")
+    save_checkpoint(part, ckpt)
+    resumed = ev.run(resume_from=load_checkpoint(ckpt))
+    full = results["streamed"]
+    if resumed.frame_mask.popcount() != n_frames or resumed.n_frames_done != n_frames:
+        raise AssertionError((resumed.frame_mask.popcount(), resumed.n_frames_done))
+    bad = [k for k in full.temporal if not np.array_equal(resumed.temporal[k], full.temporal[k])]
+    if bad:
+        raise AssertionError(f"resumed temporal values differ: {bad}")
+    rel = {}
+    for k, got, want in [(k, resumed.distributions[k], full.distributions[k]) for k in full.distributions] + \
+            [(k, resumed.volumes[k], full.volumes[k]) for k in full.volumes]:
+        dev_abs = np.abs(got.astype(np.float64) - want)
+        if (dev_abs > IO_RTOL * np.abs(want)).any():
+            raise AssertionError(f"resumed {k} off by {dev_abs.max()} (relative {IO_RTOL})")
+        nz = want != 0
+        rel[k] = float((dev_abs[nz] / np.abs(want[nz])).max()) if nz.any() else 0.0
+    # -- 7. import of an .xvg
+    xvg = str(work / "energy.xvg")
+    cols = np.stack([np.arange(n_frames) * 2.0, np.sin(np.arange(n_frames) * 0.1) * 50.0])
+    write_xvg(xvg, cols, title="E", xaxis="t (ps)", yaxis="kJ/mol", legends=["E"])
+    want_cols = read_xvg(xvg)[0]
+    cs_e = compile_script(HEADLINE + f'e = import("{xvg}");\n', system, dev)
+    x, b = staged.device_frame(0)
+    t_e, _ = cs_e.frame_fn(x, b, inv_basis_of(b))
+    got_cols = t_e["e"].cpu().numpy().reshape(want_cols.shape)
+    if want_cols.shape != (2, n_frames) or not np.array_equal(got_cols, want_cols):
+        raise AssertionError(f"import: {got_cols.shape} vs {want_cols.shape}")
+    fps = {k: [n_frames / t for t in v] for k, v in runs.items()}
+    phase("io", t0, (
+        f"{system.natoms} atoms x {n_frames} frames, chunk {chunk}: water_box {t_gen:.2f} s, "
+        f"wrote .gro {t_gro:.2f} s ({mib[gro]:.1f} MiB), .xtc {t_xtc:.2f} s "
+        f"({mib[xtc]:.1f} MiB, {mib[xtc] * 2**20 / (system.natoms * n_frames):.3f} "
+        f"B an atom a frame); load_file .gro {t_gro_open:.2f} s ({system.nbonds} bonds "
+        f"inferred), .xtc first open (decode + transcode) {t_first:.2f} s "
+        f"(.vtraj {mib['box.xtc.vtraj']:.1f} MiB), second open {t_second * 1e3:.2f} ms; "
+        f"O/H selections equal datagen's; compile {t_compile:.2f} s, routes {cs.routes}; "
+        f"stage {t_stage:.2f} s; frames/s staged "
+        f"{' '.join(f'{f:.1f}' for f in fps['staged'])}"
+        + (f" ([main]'s Evaluator here {main_fps:.1f})" if headline is not None else "")
+        + f", streamed (.vtraj) "
+        f"{' '.join(f'{f:.1f}' for f in fps['streamed'])}, streamed (.xtc, decode in "
+        f"the loader) {' '.join(f'{f:.1f}' for f in fps['xtc'])}; pair_hist launches "
+        f"{launches['staged']} / {launches['streamed']} / {launches['xtc']}; streamed == "
+        f"staged bit for bit (temporal, r, v), from the .xtc too; frames 0 and "
+        f"{n_frames - 1} r vs all pairs max bin err {max(r_errs):g}; staging step: sync "
+        f"points {len(syncs)}, {stage_ms:.3f} ms behind 100 ms of queued sleep; "
+        f"interrupted after {part.n_frames_done} frames, resumed: mask full, temporal "
+        f"equal, largest relative deviation "
+        + ", ".join(f"{k} {v:.3g}" for k, v in rel.items())
+        + f"; import of a {n_frames}-row .xvg equal to its columns"
+    ))
+    return {"launches": sum(launches.values()), "fps": fps}
+
+
 def main() -> None:
     # -- 1. device ---------------------------------------------------------
     t0 = time.perf_counter()
@@ -1180,13 +1418,40 @@ def main() -> None:
     torch.cuda.synchronize()
     launches_warm = cuda_rdf.launches
     torch.cuda.reset_peak_memory_stats()
-    times = []
-    for _ in range(3):
-        t1 = time.perf_counter()
-        res = ev.run()
-        checksum = res.force()
-        times.append(time.perf_counter() - t1)
+    fixed_sum = density.fixed_point_sum
+
+    def atomic(n, flat, wts):  # float atomics, summed in thread order
+        return torch.zeros(n, device=flat.device).index_add_(0, flat, wts)
+
+    times = {"fixed": [], "index_add_": []}
+    grids = {"fixed": [], "index_add_": []}
+    for order in MAIN_SPLAT_ORDER:
+        with (contextlib.nullcontext() if order == "fixed"
+              else mock.patch.object(density, "fixed_point_sum", atomic)):
+            t1 = time.perf_counter()
+            run = ev.run()
+            sum_ = run.force()
+            times[order].append(time.perf_counter() - t1)
+        grids[order].append(run.volumes["v"])
+        if order == "fixed":
+            res, checksum = run, sum_
     launches = cuda_rdf.launches  # read just after the main path
+    if not all(np.array_equal(g, grids["fixed"][0]) for g in grids["fixed"]):
+        raise AssertionError("the fixed-point splat differs between runs")
+    atomic_diff = max(float(np.abs(g - grids["index_add_"][0]).max())
+                      for g in grids["index_add_"])
+    # both splat sums on frame 0's terms, device time
+    terms = []
+
+    def record(n, flat, wts):
+        terms.append((n, flat, wts))
+        return fixed_sum(n, flat, wts)
+
+    with mock.patch.object(density, "fixed_point_sum", record):
+        x, b = traj.device_frame(0)
+        compiled.frame_fn(x, b, inv_basis_of(b))
+    splat_ms = {name: sum(cuda_ms(lambda: fn(*t), queued=True) for t in terms)
+                for name, fn in (("fixed", fixed_sum), ("index_add_", atomic))}
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     if launches - launches_warm < N_FRAMES:
         raise AssertionError(
@@ -1203,10 +1468,17 @@ def main() -> None:
         t = res.temporal[k]
         if t.shape != (N_FRAMES, 1) or not np.isfinite(t).all():
             raise AssertionError((k, t.shape))
-    fps = [N_FRAMES / t for t in times]
+    fps = {k: [N_FRAMES / t for t in v] for k, v in times.items()}
     phase("main", t0, (
         f"{sys_.natoms} atoms x {N_FRAMES} frames, chunk {CHUNK}: "
-        f"frames/s {' '.join(f'{f:.1f}' for f in fps)} (best {max(fps):.1f}); "
+        f"frames/s {' '.join(f'{f:.1f}' for f in fps['fixed'])} (best "
+        f"{max(fps['fixed']):.1f}); with a float index_add_ splat, in turns "
+        f"{' '.join(f'{f:.1f}' for f in fps['index_add_'])} (best "
+        f"{max(fps['index_add_']):.1f}); splat of frame 0 "
+        f"({sum(t[1].numel() for t in terms)} terms in {len(terms)} sums), device "
+        f"ms fixed point {splat_ms['fixed']:.4f}, index_add_ {splat_ms['index_add_']:.4f}; "
+        f"v of the fixed-point runs equal, of the index_add_ runs max diff "
+        f"{atomic_diff:.3g}; "
         f"compile {t_compile:.2f} s; r-sum {r_sum:.6g} v-sum {v_sum:.6g}; "
         f"peak mem {peak_gib:.3f} GiB; pair_hist launches {launches} "
         f"({launches - launches_warm} in the timed runs)"
@@ -1403,6 +1675,9 @@ def main() -> None:
     default_phase(dev)
     lang_phase(dev, sys_, traj, ev)
 
+    # -- 15. the analysis path from files
+    io = io_phase(dev, headline=ev)
+
     print(json.dumps({"kernels": [
         {
             "name": "pair_hist",
@@ -1410,6 +1685,7 @@ def main() -> None:
             "source": "viamd_tpu_torch/csrc/pair_hist.cu",
             "replaces": "viamd_tpu/ops/pallas_rdf.py:58",
             "launches": launches,
+            "launches_io": io["launches"],
             "max_abs_err": err_same,
             "ms": ms_kernel,
             "plain_ms": ms_plain,

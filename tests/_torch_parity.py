@@ -28,7 +28,12 @@ def system_fields(sys) -> tuple[dict, np.ndarray]:
                 for k in dataclasses.fields(v)
             }
         elif f.name == "instances":
-            fields[f.name] = v
+            fields[f.name] = None if v is None else {
+                "atom_ranges": np.asarray(v.atom_ranges),
+                "transforms": np.asarray(v.transforms),
+                "label_id": np.asarray(v.label_id),
+                "labels": np.asarray(v.labels.labels, dtype=str),
+            }
         else:
             fields[f.name] = None if v is None else np.asarray(v)
     return fields, np.asarray(sys.cell.basis, np.float32)

@@ -245,8 +245,7 @@ def _agree_on_frame0(src, sys_j, sys_t, x0):
     """"error" when both raise a ScriptError with one message, "compiled"
     when both compile and agree on frame 0, `x0`. The JAX package may raise a non-typed
     exception (its BinOp lets a shape mismatch through); the port then
-    raises a ScriptError there. `import` raises "not yet ported" in the
-    port where the JAX package reads a file."""
+    raises a ScriptError there."""
     import jax.numpy as jnp
 
     from viamd_tpu.script import compile_script as j_compile
@@ -264,8 +263,7 @@ def _agree_on_frame0(src, sys_j, sys_t, x0):
         assert je is not None and te is not None, (src, je, te)
         if isinstance(je, JScriptError):
             assert isinstance(te, ScriptError), (src, je, te)
-            if "'import' not yet ported" not in str(te):
-                assert str(te) == str(je), src
+            assert str(te) == str(je), src
         elif not isinstance(te, ScriptError):
             assert type(te) is type(je), (src, je, te)
         return "error"

@@ -21,7 +21,10 @@ print(len(names), bad)
 for mod in ("ops.cuda_rdf", "render.camera", "render.color", "render.cuda_raster",
             "render.raster", "render.hbao", "render.fxaa", "render.postprocess",
             "ops.bonds", "ops.geometry", "ops.com", "ops.covariance", "ops.rmsd",
-            "ops.pbc", "ops.rdf", "core.system", "script.compiler", "script.filterlang"):
+            "ops.pbc", "ops.rdf", "core.system", "script.compiler", "script.filterlang",
+            "native", "eval.engine", "io.trajectory", "io.loader", "io.xtc", "io.trr",
+            "io.dcd", "io.cache", "io.gro", "io.pdb", "io.xyz", "io.mmcif", "io.lammps",
+            "io.edr", "io.xvg", "io.csv"):
     assert "viamd_tpu_torch." + mod in names, (mod, names)
 assert not bad, bad
 """
@@ -39,3 +42,23 @@ def test_chip_smoke_imports_no_jax():
     src = (REPO / "chip_smoke.py").read_text()
     assert "import jax" not in src and "from jax" not in src
     assert "viamd_tpu." not in src.replace("viamd_tpu_torch", "")
+
+
+def test_host_codecs_build_and_load(tmp_path, monkeypatch):
+    """The host codecs build with g++ into a keyed shared object under
+    `_build/` (here a fresh directory, so the build runs) and load; a
+    second load reuses the object."""
+    from viamd_tpu_torch import native
+
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(native, "_loaded", {})
+    for name, sources in (native.XTC, native.FASTPARSE):
+        out = native.target(name, sources)
+        assert out.parent == tmp_path and not out.exists()
+        lib = native.load_library(name, sources)
+        assert out.exists() and native.load_library(name, sources) is lib
+        assert not list(tmp_path.glob("*.tmp.so"))
+    assert hasattr(native.load_library(*native.XTC), "xtc_read_frames")
+    assert hasattr(native.load_library(*native.FASTPARSE), "pdb_parse_coords")
+    assert native.target(*native.XTC).parent == tmp_path
+    assert native.target(*native.XTC) != native.target(*native.FASTPARSE)

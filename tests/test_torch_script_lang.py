@@ -276,20 +276,22 @@ EXAMPLES = {
 
 
 def test_every_builtin_compiles():
-    """Every name the JAX compiler registers except `import` is a builtin or
-    nullary of the port and compiles; `import` alone is not ported."""
+    """Every name the JAX compiler registers is a builtin or nullary of the
+    port and compiles (`NOT_PORTED` is empty since `import` reads its
+    tables through the port's io/; tests/test_torch_stream.py holds its
+    values to the JAX compiler's)."""
     from viamd_tpu.script.compiler import BUILTINS as J_BUILTINS, NULLARY as J_NULLARY
 
     jax_names = set(J_BUILTINS) | set(J_NULLARY)
-    assert NOT_PORTED == {"import"} and "import" in jax_names
-    assert set(BUILTINS) | set(NULLARY) == jax_names - NOT_PORTED
-    assert set(EXAMPLES) == jax_names - NOT_PORTED
+    assert NOT_PORTED == frozenset() and "import" in BUILTINS
+    assert set(BUILTINS) | set(NULLARY) == jax_names
+    assert set(EXAMPLES) == jax_names - {"import"}
     sys_, _ = polyala_helix(4, n_frames=1)
     src = "".join(f"v_{k} = {e};\n" for k, e in EXAMPLES.items())
     cs = compile_script(src, sys_, "cpu")
     assert len(cs.selections) + len(cs.properties) == len(EXAMPLES)
-    with pytest.raises(ScriptError, match="'import' not yet ported"):
-        compile_script("t = import('table.xvg');", sys_, "cpu")
+    with pytest.raises(ScriptError, match="import: unsupported file 'table.txt'"):
+        compile_script("t = import('table.txt');", sys_, "cpu")
 
 
 # -- scripts ------------------------------------------------------------------------

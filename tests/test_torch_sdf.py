@@ -206,3 +206,26 @@ def test_pairs_route_saturated_blocks():
     got, want = _pairs_both(case, 8.0, 8, 640, None)
     _close_grid(got, want, atol_rel=ROUTE_ATOL)
     assert got.sum() > 0
+
+
+def test_fixed_point_sum_is_order_free():
+    """The splat's fixed-point sum: the same float32 grid for any order of
+    the terms, equal to the exactly rounded float64 sum where every term is
+    a multiple of its step, and within one step per term otherwise."""
+    rng = np.random.RandomState(4)
+    n, m = 50, 20_000
+    flat = rng.randint(0, n, m)
+    wts = rng.uniform(0.0, 1.0, m).astype(np.float32)
+    got = t_density.fixed_point_sum(n, torch.as_tensor(flat), torch.as_tensor(wts))
+    perm = rng.permutation(m)
+    again = t_density.fixed_point_sum(n, torch.as_tensor(flat[perm]), torch.as_tensor(wts[perm]))
+    assert torch.equal(got, again) and got.dtype == torch.float32
+    exact = np.zeros(n)
+    np.add.at(exact, flat, wts.astype(np.float64))
+    bits = min(40, 62 - m.bit_length())
+    step = np.bincount(flat, minlength=n) * 2.0**-bits  # one step a term
+    assert (np.abs(got.numpy() - exact) <= step + 1e-7 * exact).all()
+    coarse = (np.round(wts * 2.0**bits) / 2.0**bits).astype(np.float64)
+    want = np.zeros(n)
+    np.add.at(want, flat, coarse)
+    np.testing.assert_array_equal(got.numpy(), want.astype(np.float32))

@@ -172,7 +172,7 @@ def test_interop_roundtrip_keeps_topology(slice_results):
 @pytest.mark.parametrize(
     "src, match",
     [
-        ("t = import('table.xvg');", "'import' not yet ported"),
+        ("t = import('table.txt');", "import: unsupported file"),
         ("t = import(element('Qq'));", "unknown element"),
         ("s = element('O') and 3;", "expected an atom selection"),
         ("r = rdf(element('Qq'), element('O'), 3.0);", "unknown element|not yet ported"),
@@ -180,9 +180,9 @@ def test_interop_roundtrip_keeps_topology(slice_results):
     ],
 )
 def test_unported_builtins_raise(src, match):
-    """`import` is the one builtin the port does not have (it reads files
-    through io/); its arguments' errors come first, as in the JAX package.
-    Every other builtin compiles (tests/test_torch_script_lang.py)."""
+    """Compile errors of builtins: `import` of a file it has no reader for,
+    and an argument's error before the call's, as in the JAX package.
+    Every builtin compiles (tests/test_torch_script_lang.py)."""
     sys_, _ = water_box(100, n_frames=1, seed=0)  # 300 atoms: small box
     with pytest.raises(ScriptError, match=match):
         compile_script(src, sys_, "cpu")

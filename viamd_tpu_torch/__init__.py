@@ -7,10 +7,14 @@ same relative path; hand-written CUDA kernels live in `csrc/`.
 
 The package imports torch and numpy only: never jax, and never anything
 under `viamd_tpu` (whose package import pulls in jax). Host-only modules it
-needs are carried as numpy copies.
+needs are carried as numpy copies, its host C++ codecs (`csrc/host/`) as
+copies built by `native.py`.
 
-Covered so far: the RDF + SDF + shape-analysis script path
-(`compile_script` → `Evaluator.run`) on an explicit torch device.
+Covered so far: file loading (`io.load_file`), the script language
+(`script.compile_script`), evaluation over staged or streamed
+trajectories with checkpoints (`eval.Evaluator`), and the molecule render
+path (`render.raster`, `render.postprocess`), each on an explicit torch
+device.
 """
 
 from viamd_tpu_torch.core.bitfield import Bitfield

@@ -1,7 +1,7 @@
 """Molecular system data model — numpy copy of viamd_tpu.core.system
 (`System`, `build_system`, the structural flags, and `postprocess`: element,
 radius and mass inference, residue flags, bond inference through
-ops.bonds, backbone detection). Instance tables are not carried over.
+ops.bonds, backbone detection) and `InstanceTable`.
 
 Mirror of mdlib's md_system_t (reference capability surface:
 SoA atom arrays x/y/z/flags + atom types, bonds, residues ("components"),
@@ -16,7 +16,7 @@ tables so per-atom data stays numeric.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Optional
 
 import numpy as np
 
@@ -94,6 +94,71 @@ class Backbone:
 
 
 @dataclasses.dataclass
+class InstanceTable:
+    """Instances: atom ranges + rigid transforms, DISTINCT from chains.
+
+    Mirrors md_system_t.instance (VIAMD src/viamd.h:1560-1570 —
+    md_system_instance_count/atom_range, per-instance transforms fed to
+    md_gfx_structure_set_instance_{atom_ranges,transforms} at
+    viamd.cpp:607-613). Instances materialize mmCIF assemblies/symmetry
+    copies WITHOUT replicating atoms: each row references a base atom
+    range and carries the 4×4 operator that places the copy. Multiple
+    rows may share a range (one asym group under several operators);
+    `find_by_atom` returns the first (identity-operator) owner, matching
+    md_system_instance_find_by_atom_idx's base-atom semantics.
+    """
+
+    atom_ranges: np.ndarray  # (K, 2) int32 [beg, end) into base atoms
+    transforms: np.ndarray  # (K, 4, 4) float32 row-vector-style A·x + t
+    label_id: np.ndarray  # (K,) int32 → labels ("asymId·operId")
+    labels: LabelTable
+
+    @property
+    def count(self) -> int:
+        return int(self.atom_ranges.shape[0])
+
+    def is_identity(self, k: int, tol: float = 1e-6) -> bool:
+        return bool(
+            np.allclose(self.transforms[k], np.eye(4, dtype=np.float32),
+                        atol=tol)
+        )
+
+    def find_by_atom(self, atom_idx: int) -> int:
+        """First instance whose range contains the atom (md_system_
+        instance_find_by_atom_idx), -1 if none."""
+        for k in range(self.count):
+            b, e = self.atom_ranges[k]
+            if b <= atom_idx < e:
+                return k
+        return -1
+
+    def expansion(self, coords: np.ndarray):
+        """Expanded per-instance geometry: (xyz (M,3) f32, src (M,) int32).
+
+        `src` maps every expanded atom back to its base atom index — the
+        picking/color/radius gather for instanced draws (the md_gfx
+        per-instance draw, viamd.cpp:611-613, as an explicit expansion
+        since the raster consumes flat arrays)."""
+        xs, srcs = [], []
+        for k in range(self.count):
+            b, e = (int(v) for v in self.atom_ranges[k])
+            T = self.transforms[k]
+            p = coords[b:e]
+            xs.append(p @ T[:3, :3].T + T[:3, 3])
+            srcs.append(np.arange(b, e, dtype=np.int32))
+        return (
+            np.concatenate(xs, axis=0).astype(np.float32),
+            np.concatenate(srcs, axis=0),
+        )
+
+    @property
+    def nontrivial(self) -> bool:
+        """True when expansion differs from the base system (any
+        non-identity operator)."""
+        return any(not self.is_identity(k) for k in range(self.count))
+
+
+@dataclasses.dataclass
 class System:
     """A molecular system: atoms + topology + unit cell (host-resident)."""
 
@@ -129,7 +194,7 @@ class System:
     bfactor: Optional[np.ndarray] = None
     velocity: Optional[np.ndarray] = None  # (n,3) f32 if the format provides it
     # instances (assemblies / symmetry copies) — None for most formats
-    instances: Optional[Any] = None
+    instances: Optional[InstanceTable] = None
 
     # -- shape queries -------------------------------------------------------
     @property

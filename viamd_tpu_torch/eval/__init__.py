@@ -1,5 +1,16 @@
-"""Evaluation engine: drive a compiled script over a device trajectory."""
+"""Evaluation engine: drive a compiled script over a trajectory."""
 
-from viamd_tpu_torch.eval.engine import EvalResult, Evaluator
+from viamd_tpu_torch.eval.engine import (
+    ChunkStream,
+    EvalResult,
+    Evaluator,
+    evaluate,
+    load_checkpoint,
+    merge_results,
+    save_checkpoint,
+)
 
-__all__ = ["EvalResult", "Evaluator"]
+__all__ = [
+    "ChunkStream", "EvalResult", "Evaluator", "evaluate", "load_checkpoint",
+    "merge_results", "save_checkpoint",
+]

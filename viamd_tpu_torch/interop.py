@@ -13,7 +13,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from viamd_tpu_torch.core.system import Backbone, LabelTable, System
+from viamd_tpu_torch.core.system import Backbone, InstanceTable, LabelTable, System
 from viamd_tpu_torch.core.unitcell import UnitCell
 from viamd_tpu_torch.io.trajectory import DeviceTrajectory
 
@@ -25,12 +25,11 @@ def system_from_numpy(fields: dict, basis: np.ndarray) -> System:
 
     `fields` maps field names to numpy arrays; the label tables
     (`atom_names`, `res_names`, `chain_labels`) are arrays of strings,
-    `backbone` (optional) is a dict of the Backbone fields, `cell` is
-    ignored in favour of `basis` ((3, 3) row-vector basis, zeros when
-    aperiodic). Instance tables are not ported and must be absent or None.
+    `backbone` (optional) is a dict of the Backbone fields, `instances`
+    (optional) a dict of the InstanceTable fields with `labels` an array of
+    strings, `cell` is ignored in favour of `basis` ((3, 3) row-vector
+    basis, zeros when aperiodic).
     """
-    if fields.get("instances") is not None:
-        raise ValueError("instance tables are not yet ported to viamd_tpu_torch")
     kw = {}
     for f in dataclasses.fields(System):
         name = f.name
@@ -41,6 +40,8 @@ def system_from_numpy(fields: dict, basis: np.ndarray) -> System:
             for s in np.asarray(fields[name]).tolist():
                 tab.intern(str(s))
             kw[name] = tab
+        elif name == "instances":
+            kw[name] = _instances(fields.get(name))
         elif name == "backbone":
             bb = fields.get(name)
             kw[name] = None if bb is None else Backbone(
@@ -52,6 +53,20 @@ def system_from_numpy(fields: dict, basis: np.ndarray) -> System:
         elif f.default is dataclasses.MISSING:
             raise KeyError(f"system field '{name}' missing")
     return System(**kw)
+
+
+def _instances(inst: dict | None) -> InstanceTable | None:
+    if inst is None:
+        return None
+    labels = LabelTable()
+    for s in np.asarray(inst["labels"]).tolist():
+        labels.intern(str(s))
+    return InstanceTable(
+        atom_ranges=np.asarray(inst["atom_ranges"], np.int32).copy(),
+        transforms=np.asarray(inst["transforms"], np.float32).copy(),
+        label_id=np.asarray(inst["label_id"], np.int32).copy(),
+        labels=labels,
+    )
 
 
 def trajectory_from_numpy(

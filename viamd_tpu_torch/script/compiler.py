@@ -2,13 +2,12 @@
 
 Counterpart of viamd_tpu.script.compiler (md_script_ir_compile_from_source +
 md_script_eval_*, VIAMD src/main.cpp:866,959-1035), at its semantics:
-every builtin and nullary it registers except `import` (which reads files
-through io/, not yet ported, and raises ScriptError("... not yet ported")),
-the operators, `in` contexts, subscripts, array literals, `{a, b, c} = …`
-destructuring, injected identifiers, and dynamic selections (`within`,
-`x`, `y`, `z` and their boolean combinations), which consumers that take
-per-frame weights (count, com, rdf, distance_min/max, positions) evaluate
-on each frame's coordinates.
+every builtin and nullary it registers (`import` reads its table through
+the port's io/), the operators, `in` contexts, subscripts, array
+literals, `{a, b, c} = …` destructuring, injected identifiers, and
+dynamic selections (`within`, `x`, `y`, `z` and their boolean
+combinations), which consumers that take per-frame weights (count, com,
+rdf, distance_min/max, positions) evaluate on each frame's coordinates.
 
 - Frame-independent work happens once: every node whose value is static —
   a selection, number, string, range or array — is evaluated on the first
@@ -91,7 +90,7 @@ SDF_PAIRS_MAX = 150_000_000  # S·n_t above which sdf takes the cell list
 DISTANCE_PAIR_MAX = 65536  # pairs a distance_pair property may hold
 
 # builtins of viamd_tpu.script.compiler that this package does not have yet
-NOT_PORTED = frozenset({"import"})
+NOT_PORTED = frozenset()
 
 # values that do not depend on the frame: a node that gives one keeps it
 _STATIC = (Selection, str, int, float, IRange, FRange, np.ndarray, np.generic)
@@ -1596,6 +1595,31 @@ def _math2(tfn, nfn):
 BUILTINS["pow"] = _math2(torch.pow, np.power)
 BUILTINS["atan2"] = _math2(torch.atan2, np.arctan2)
 BUILTINS["mul"] = _math2(torch.mul, np.multiply)
+
+
+@builtin("import")
+def _import(c: _Compiler, node, args):
+    """import("table.xvg"/".csv"/".edr") → static (ncols, nrows) float32
+    column array (VIAMD viamd.h:86 SCRIPT_IMPORT_FILE_EXTENSIONS,
+    viamd.cpp:2833-2858)."""
+    (path,) = args
+    if not isinstance(path, str):
+        raise ScriptError("import(path)", node.line, node.col)
+    if path.endswith(".edr"):
+        from viamd_tpu_torch.io.edr import read_edr
+
+        cols, _names = read_edr(path)
+    elif path.endswith(".xvg"):
+        from viamd_tpu_torch.io.xvg import read_xvg
+
+        cols, _meta = read_xvg(path)
+    elif path.endswith(".csv"):
+        from viamd_tpu_torch.io.csv import read_csv
+
+        cols, _hdr = read_csv(path)
+    else:
+        raise ScriptError(f"import: unsupported file '{path}'", node.line, node.col)
+    return np.asarray(cols, np.float32)
 
 
 def _vector_args(c: _Compiler, node, args):
