@@ -14,7 +14,8 @@ render configuration (bench.py): the box's frames at 1920×1080, eye at box
 centre + (0, 0, 1.6·box), perspective(45°, 16/9, 1, 500), CPK colours, in
 spacefill and in licorice (133,336 bond half-capsules) — through
 render.raster.render_molecules → render.postprocess.execute (HBAO, ACES,
-compose, FXAA 3.11). Phases, one result line each:
+compose, FXAA 3.11). Then the volume view (phase 16). Phases, one result
+line each (phase 16 several):
 
 1. the device (fails without CUDA; nothing falls back to the CPU);
 2. the build of the hand-written CUDA kernels from csrc/ (one nvcc per
@@ -95,7 +96,26 @@ compose, FXAA 3.11). Phases, one result line each:
    the staged one bit for bit, frames 0 and 383 against all pairs, the
    streamed staging step's sync points and host time behind 100 ms of
    queued sleep, an interrupted run saved, loaded and resumed, and
-   `import` of a 384-row `.xvg`.
+   `import` of a 384-row `.xvg`;
+16. `[volume]`: the volume view. bench.py's volume configuration at
+   1920×1080 (128³ two-Gaussian grid, viridis TF at alpha 0.6, DVR + isos
+   0.25 and 0.6, jitter): csrc/volume.cu against march_plain on the same
+   ray table and jitter over the whole frame (max rgba and depth error at
+   decided pixels, the undecided ones counted), the live samples and iso
+   crossings, the kernel's device time behind a queued sleep and with
+   events around the call, the plain time, the bound; render_volume's
+   ms/frame over 16 frames (a new seed each), three runs, against the
+   16.7 ms vsync contract, with the launch count set to 0 before and read
+   after, and peak memory. Then the in-scene SDF view of the headline
+   result (the normalized `v`, 64³ over ±5 Å; frame 0's reference waters
+   aligned by sdf_reference_frames at 0.3 × vdW through raster.cu; the
+   volume marched to their depth; the OVER composite; execute with HBAO,
+   motion blur from frames 0 → 1, bokeh DOF, ACES, FXAA and sharpen), each
+   stage timed; the kernel against march_plain at 512² with a colour
+   volume (splat_color_volume), a clip sub-box with a background, and isos
+   only; TAAReprojector over the render path's frames 0–15 with Halton
+   jitter, the resolve timed; and the small volume + postprocess chain on
+   CUDA against the CPU.
 
 Ends with a JSON line of kernel results, the `nvidia-smi` name/power-limit
 line, and the JSON status line. Any failure raises (non-zero exit).
@@ -137,13 +157,28 @@ from viamd_tpu_torch.ops.neighbors import (
 )
 from viamd_tpu_torch.ops.pbc import inv_basis_of
 from viamd_tpu_torch.ops.rdf import pair_dist_histogram_scatter_idx, sqrt_rn
-from viamd_tpu_torch.render import cuda_raster, postprocess
+from viamd_tpu_torch.render import cuda_raster, cuda_volume, postprocess
 from viamd_tpu_torch.render import raster as raster_mod
+from viamd_tpu_torch.render.camera import (
+    compute_optimal_view,
+    look_at,
+    perspective,
+    taa_jitter_sequence,
+)
+from viamd_tpu_torch.render.colormap import colormap, transfer_function
 from viamd_tpu_torch.render.raster import (
     RasterSettings,
     build_scene,
     render_molecules,
     render_scene,
+)
+from viamd_tpu_torch.render.taa import TAAReprojector
+from viamd_tpu_torch.render.volume import (
+    VolumeRenderSettings,
+    march_params,
+    model_matrix_from_extent,
+    ray_setup,
+    render_volume,
 )
 from viamd_tpu_torch.script import compile_script
 
@@ -231,6 +266,25 @@ MAIN_SPLAT_ORDER = ("fixed", "index_add_", "index_add_", "fixed", "fixed", "inde
 # a run interrupted after 12 chunks; the float32 reordering of 24 chunk sums
 IO_CHUNK, IO_STOP_CHUNKS, IO_RTOL = 16, 12, 4e-6
 SCRATCH = Path(__file__).resolve().parent / ".chip_scratch"
+# [volume]: bench.py's volume configuration (bench.py:141-177): a 128³
+# two-Gaussian grid, viridis TF at alpha 0.6, DVR + isos 0.25 and 0.6,
+# value range (0, 1.5), jitter, eye (2.2, 1.4, 2.6) on the origin,
+# perspective(45°, 16/9, 0.1, 50), model = I; 16 frames a run against the
+# 16.7 ms vsync contract (BASELINE.md:15); the branch frames at 512²; the
+# in-scene SDF view's isos at 0.25 and 0.6 of the grid's largest value in
+# plasma colours at alpha 0.8 (density_volume.py:53-60)
+VOL_D, VOL_FRAMES, VOL_VSYNC_MS, VOL_SMALL = 128, 16, 16.7, 512
+VOL_ISOS = ((0.25, 0.6), ((0.9, 0.4, 0.2, 0.6), (0.2, 0.5, 0.9, 0.8)))
+SDF_ISO_FRACTIONS = (0.25, 0.6)
+VOL_TOL = 1e-5  # kernel vs plain: powf against torch.pow; all else exact
+# f32 operations of the march (csrc/volume.cu; compares and a powf count
+# one each): per live step, its test (4), t (3), p (6), the trilinear
+# sample (15 + 8 corners × 4), trans (1); the DVR's transfer function,
+# opacity and compositing (35); per iso and live step k > 0, the crossing
+# test (4); per crossing, its refinement, the 6-sample gradient (6 × 47),
+# the shading and compositing (351); per pixel, the half vector, the
+# hit test and the background compose (25)
+OPS_VSTEP, OPS_VDVR, OPS_VISO, OPS_VCROSS, OPS_VRAY = 61, 35, 4, 351, 25
 
 
 def host_ms(fn, reps: int = 20, queued: bool = False) -> float:
@@ -1302,6 +1356,361 @@ def _io_phase(dev, n_waters, n_frames, chunk, stop_chunks, headline, work: Path,
     return {"launches": sum(launches.values()), "fps": fps}
 
 
+def bench_volume():
+    """bench.py's 128³ two-Gaussian grid, TF, camera and settings at
+    WIDTH × HEIGHT (bench.py:141-177) → (grid, tf, model, view, proj,
+    settings), numpy."""
+    zz, yy, xx = np.meshgrid(*([np.linspace(-1, 1, VOL_D)] * 3), indexing="ij")
+    grid = (np.exp(-3 * (xx**2 + yy**2 + zz**2))
+            + 0.5 * np.exp(-8 * ((xx - 0.4) ** 2 + yy**2 + zz**2))).astype(np.float32)
+    tf = transfer_function("viridis", 256, alpha_scale=0.6)
+    view = look_at(np.array([2.2, 1.4, 2.6]), np.zeros(3), np.array([0, 1, 0.0]))
+    proj = perspective(np.radians(45.0), WIDTH / HEIGHT, 0.1, 50.0)
+    s = VolumeRenderSettings(
+        width=WIDTH, height=HEIGHT, enable_dvr=True, enable_iso=True,
+        iso_values=VOL_ISOS[0], iso_colors=VOL_ISOS[1], value_range=(0.0, 1.5),
+        jitter=True,
+    )
+    return grid, tf, np.eye(4, dtype=np.float32), view, proj, s
+
+
+def compare_volume(got, want, und) -> dict:
+    """Kernel (rgba, depth) against march_plain's on the same ray table:
+    raises unless every pixel outside the undecided ones has rgba within
+    VOL_TOL, the same depth (+inf at the same pixels), and the frame is
+    not empty. An undecided pixel is one whose march came within rounding
+    of a decision (an iso value, alpha 0.995 or 0.5, a grazing hit;
+    cuda_volume.UNDECIDED_*); they are counted, and compared only for the
+    report."""
+    (img, dep), (pimg, pdep) = got, want
+    e_rgba = (img - pimg).abs().amax(-1)
+    fin = torch.isfinite(dep) & torch.isfinite(pdep)
+    e_dep = torch.where(fin, dep - pdep, torch.zeros_like(dep)).abs()
+    inf_mis = torch.isfinite(dep) != torch.isfinite(pdep)
+    bad = (e_rgba > VOL_TOL) | (e_dep > 0) | inf_mis
+    dec = ~und
+    off = int((bad & dec).sum())
+    if off:
+        raise AssertionError(f"volume kernel differs from march_plain at {off} decided pixels "
+                             f"(rgba {float(e_rgba[dec].max()):.3g}, depth {float(e_dep[dec].max()):.3g})")
+    if float(pimg[..., 3].sum()) <= 1.0:
+        raise AssertionError("volume frame empty")
+    return dict(rgba_err=float(e_rgba[dec].max()), depth_err=float(e_dep[dec].max()),
+                undecided=int(und.sum()), undecided_off=int((bad & und).sum()),
+                max_abs_err=max(float(e_rgba[dec].max()), float(e_dep[dec].max())))
+
+
+def volume_bound(rays, params, work, grid, tf, cvol=None) -> tuple:
+    """(bound ms, bound_by, ops, bytes) of one march: the operations its
+    live samples and crossings need (work: march_plain's counts), and the
+    ray table, grid, TF and colour volume read once and the outputs
+    written once."""
+    P = rays.shape[1]
+    hits = int((rays[cuda_volume.RAY_FIELDS.index("hit")] > 0).sum())
+    n_iso = len(params.iso_values)
+    ops = (work["samples"] * (OPS_VSTEP + (OPS_VDVR if params.enable_dvr else 0))
+           + max(work["samples"] - hits, 0) * n_iso * OPS_VISO
+           + work["crossings"] * OPS_VCROSS + P * OPS_VRAY)
+    nbytes = (rays.numel() + grid.numel() + tf.numel()
+              + (cvol.numel() if cvol is not None else 0) + P * 5) * 4
+    ms, by = bound(ops, nbytes)
+    return ms, by, ops, nbytes
+
+
+def volume_check(name, dev, grid, tf, cvol, model, view, proj, s, seed, t0) -> dict:
+    """The kernel against march_plain on one ray table with jitter: the
+    comparison, the work, the kernel's device time behind a queued sleep
+    and with events around the call, the plain time, the bound."""
+    params = march_params(grid.shape, s, cvol is not None)
+    jit = torch.rand(s.width * s.height, generator=torch.Generator(device=dev).manual_seed(seed),
+                     device=dev) if s.jitter else None
+    rays = ray_setup(grid.shape, model, view, proj, s, jit, device=dev)
+    args = (grid, tf, cvol, rays, s.width, s.height, params)
+    got = cuda_volume.march(*args)
+    und, work = [], {}
+    want = cuda_volume.march_plain(*args, undecided=und, work=work)
+    torch.cuda.synchronize()
+    cmp = compare_volume(got, want, und[0])
+    ms = cuda_ms(lambda: cuda_volume.march(*args), queued=True)
+    ms_call = cuda_ms(lambda: cuda_volume.march(*args))
+    plain_ms = cuda_ms(lambda: cuda_volume.march_plain(*args), reps=1, warmup=0)
+    b_ms, b_by, ops, nbytes = volume_bound(rays, params, work, grid, tf, cvol)
+    phase("volume", t0, (
+        f"{name} {s.width}x{s.height}, grid {tuple(grid.shape)}, {params.nsteps} steps, "
+        f"{len(params.iso_values)} isos, dvr {params.enable_dvr}, colour volume "
+        f"{cvol is not None}: live samples {work['samples']}, iso crossings "
+        f"{work['crossings']}; kernel vs plain max rgba err {cmp['rgba_err']:.3g}, depth err "
+        f"{cmp['depth_err']:.3g} (decided pixels), undecided {cmp['undecided']} "
+        f"({cmp['undecided_off']} of them off); kernel {ms:.4f} ms (device, queued; events "
+        f"around the call {ms_call:.4f} ms), plain {plain_ms:.1f} ms, plain/kernel "
+        f"{plain_ms / ms:.0f}x; bound {b_ms:.4f} ms ({b_by}; {ops:.6g} operations, "
+        f"{nbytes} bytes), kernel at {b_ms / ms * 100:.1f}% of the bound"
+    ))
+    return dict(cmp, ms=ms, call_ms=ms_call, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                work=work)
+
+
+def screen_xy(x, view, proj, width: int, height: int):
+    """(n, 2) pixel coordinates (column, image row; row 0 at NDC y = −1,
+    the raster's convention) of world points x (n, 3)."""
+    m = torch.as_tensor(np.asarray(proj, np.float64) @ np.asarray(view, np.float64),
+                        dtype=torch.float32).to(x.device)
+    h = x @ m[:3, :3].T + m[:3, 3]
+    w = x @ m[3, :3] + m[3, 3]
+    return torch.stack([(h[:, 0] / w + 1) * 0.5 * width - 0.5,
+                        (h[:, 1] / w + 1) * 0.5 * height - 0.5], -1)
+
+
+def sdf_view(dev, sys_, compiled, res, traj, width: int, height: int) -> dict:
+    """The in-scene SDF view (density_volume.py:137-184, :266-302, session.py:
+    917-995) of the headline result: the normalized `v`, frame 0's reference
+    waters aligned into the volume's frame at 0.3 × vdW in CPK colours,
+    rendered by render_molecules, the volume marched up to their depth
+    (DVR + 2 isos), OVER-composited, then postprocess.execute with every
+    pass (HBAO, motion blur from frames 0 → 1, bokeh DOF, ACES, FXAA,
+    sharpen). → the stages' ms, the launch counts and the frame."""
+    from viamd_tpu_torch.core.elements import VDW_RADII
+    from viamd_tpu_torch.ops.sdf import sdf_reference_frames
+    from viamd_tpu_torch.render.color import color_atoms_cpk
+
+    rec = compiled.visualization["sdf"][0]
+    extent = float(rec["extent"])
+    atoms = np.concatenate(rec["structures"])
+    cam = compute_optimal_view([-extent] * 3, [extent] * 3)
+    view, proj = cam.view_matrix(), cam.proj_matrix(width, height)
+    times = {}
+
+    def stamp(key, t1):
+        torch.cuda.synchronize()
+        times[key] = (time.perf_counter() - t1) * 1e3
+
+    def aligned(f):  # reference atoms of frame f in the volume's frame
+        x, b = traj.device_frame(f)
+        R, c = sdf_reference_frames(
+            x, torch.as_tensor(rec["struct_idx"], device=dev),
+            torch.as_tensor(rec["struct_w"], device=dev),
+            torch.as_tensor(rec["ref_centered"], device=dev), b, inv_basis_of(b))
+        owner = np.repeat(np.arange(len(rec["structures"])), [len(a) for a in rec["structures"]])
+        own = torch.as_tensor(owner, device=dev)
+        p = x[torch.as_tensor(atoms, device=dev)]
+        return torch.einsum("nij,nj->ni", R[own], p - c[own])
+
+    cuda_raster.launches = cuda_volume.launches = 0
+    t1 = time.perf_counter()
+    grid = torch.as_tensor(res.normalized_volume("v"), device=dev)
+    vmax = float(grid.max()) or 1.0
+    stamp("grid", t1)
+    t1 = time.perf_counter()
+    p0, p1 = aligned(0), aligned(1)
+    stamp("align", t1)
+    radii = torch.as_tensor(VDW_RADII[sys_.element[atoms]] * 0.3, device=dev)
+    colors = torch.as_tensor(color_atoms_cpk(sys_)[atoms], device=dev)
+    t1 = time.perf_counter()
+    img, dep, pick = render_molecules(p0, radii, colors, view, proj,
+                                      RasterSettings(width=width, height=height), device=dev)
+    stamp("raster", t1)
+    plasma = colormap("plasma", 2)
+    s = VolumeRenderSettings(
+        width=width, height=height, value_range=(0.0, vmax), enable_iso=True,
+        iso_values=tuple(f * vmax for f in SDF_ISO_FRACTIONS),
+        iso_colors=tuple((float(r), float(g), float(b), 0.8) for r, g, b in plasma),
+    )
+    t1 = time.perf_counter()
+    vimg, _ = render_volume(grid, transfer_function("viridis", 256), model_matrix_from_extent(extent),
+                            view, proj, s, seed=0, scene_depth=dep, device=dev)
+    stamp("volume", t1)
+    t1 = time.perf_counter()
+    va = vimg[..., 3:4]
+    comp = torch.cat([vimg[..., :3] + img[..., :3] * img[..., 3:4] * (1.0 - va),
+                      va + img[..., 3:4] * (1.0 - va)], -1)
+    vel = postprocess.velocity_image(pick, screen_xy(p0, view, proj, width, height),
+                                     screen_xy(p1, view, proj, width, height))
+    stamp("compose", t1)
+    pp = postprocess.PostprocessSettings(enable_dof=True, focus_depth=float(cam.distance()),
+                                         enable_motion_blur=True, enable_sharpen=True)
+    t1 = time.perf_counter()
+    out = postprocess.execute(comp, dep, pp, velocity=vel, proj=proj)
+    stamp("postprocess", t1)
+    if not (out.shape == (height, width, 3) and bool(torch.isfinite(out).all())):
+        raise AssertionError(("sdf view output", tuple(out.shape)))
+    launches = dict(raster=cuda_raster.launches, volume=cuda_volume.launches)
+    if launches != dict(raster=1, volume=1):
+        raise AssertionError(f"sdf view launches {launches}, expected one of each")
+    hit = float((pick >= 0).double().mean())
+    vol = float((va > 0.01).double().mean())
+    if not (hit > 0.001 and vol > 0.01):
+        raise AssertionError(f"sdf view: {hit} of pixels hit an atom, {vol} see the volume")
+    return dict(times=times, launches=launches, out=out, hit=hit, vol=vol, atoms=len(atoms),
+                vmax=vmax, moved=float(vel.abs().max()))
+
+
+def taa_frames(dev, sys_, traj, scene_in, width: int, height: int, n_frames: int) -> dict:
+    """TAAReprojector over the render path's frames 0 … n_frames − 1
+    (spacefill, the projection jittered by taa_jitter_sequence, velocity
+    from each frame's picks through velocity_image): ms of each resolve
+    (host clock to a synchronize), and the last output."""
+    jit = taa_jitter_sequence(n_frames)
+    taa = TAAReprojector()
+    s = RasterSettings(width=width, height=height)
+    view, proj0 = scene_in["view"], scene_in["proj"]
+    prev_xy, ms = None, []
+    for f in range(n_frames):
+        x = traj.device_frame(f)[0]
+        # datagen.render_inputs' projection, jittered as Camera.proj_matrix jitters
+        proj = perspective(np.radians(45.0), width / height, 1.0, 500.0,
+                           (2.0 * jit[f, 0] / width, 2.0 * jit[f, 1] / height))
+        img, dep, pick = render_molecules(x, scene_in["radii"], scene_in["colors"], view, proj,
+                                          s, device=dev)
+        rgb = postprocess.execute(img, dep, postprocess.PostprocessSettings(), proj=proj)
+        xy = screen_xy(x, view, proj0, width, height)
+        vel = postprocess.velocity_image(pick, xy, xy if prev_xy is None else prev_xy)
+        prev_xy = xy
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = taa.step(rgb, vel, dep, jitter_px=(float(jit[f, 0]), float(jit[f, 1])))
+        torch.cuda.synchronize()
+        if f:
+            ms.append((time.perf_counter() - t1) * 1e3)
+    if not (out.shape == (height, width, 3) and bool(torch.isfinite(out).all())):
+        raise AssertionError(("taa output", tuple(out.shape)))
+    return dict(ms=ms, frame=taa.frame, out=out)
+
+
+def volume_chain(dev, width: int = 160, height: int = 120) -> str:
+    """The volume + postprocess chain on a small scene, CUDA against the CPU
+    (whose tests hold it to the JAX package, tests/test_torch_volume.py and
+    tests/test_torch_postprocess_passes.py): the unjittered 32³ DVR + 2-iso
+    render within VOL_TOL at decided pixels (torch's CPU sqrt and pow round
+    apart from the card's), then execute with every pass within 1e-4 at 97%
+    of pixels (FXAA's ties; the DOF's hash is the same on both)."""
+    x = np.linspace(-1, 1, 32)
+    X, Y, Z = np.meshgrid(x, x, x, indexing="ij")
+    grid = (np.exp(-4 * ((X - 0.2) ** 2 + Y**2 + Z**2))
+            + 0.7 * np.exp(-6 * (X**2 + (Y + 0.4) ** 2 + (Z - 0.3) ** 2))).astype(np.float32)
+    tf = transfer_function("viridis", alpha_scale=0.6)
+    cam = compute_optimal_view([-0.5] * 3, [0.5] * 3)
+    view, proj = cam.view_matrix(), cam.proj_matrix(width, height)
+    s = VolumeRenderSettings(width=width, height=height, jitter=False, enable_iso=True,
+                             iso_values=(0.3, 0.7), iso_colors=((1, 0.6, 0.2, 0.5), (0.2, 0.5, 0.9, 0.8)))
+    model = model_matrix_from_extent(0.5)
+    res = {}
+    for d in ("cpu", dev):
+        img, dep = render_volume(grid, tf, model, view, proj, s, device=d)
+        vel = torch.zeros((height, width, 2), device=d)
+        vel[40:80, 50:110] = torch.tensor([4.0, -2.0], device=d)
+        pp = postprocess.PostprocessSettings(enable_dof=True, dof_max_blur=6.0,
+                                             focus_depth=float(cam.distance()),
+                                             enable_motion_blur=True, enable_sharpen=True)
+        out = postprocess.execute(img, dep, pp, velocity=vel, proj=proj)
+        res[str(d)] = [v.cpu() for v in (img, dep, out)]
+    (ci, cd, co), (gi, gd, go) = res["cpu"], res[str(dev)]
+    rays = ray_setup(grid.shape, model, view, proj, s, device="cpu")
+    und = []
+    cuda_volume.march_plain(torch.as_tensor(grid), torch.as_tensor(tf), None, rays, width, height,
+                            march_params(grid.shape, s, False), undecided=und)
+    dec = ~und[0]
+    e = (ci - gi).abs().amax(-1)
+    fin = torch.isfinite(cd) & torch.isfinite(gd) & dec
+    derr = float((cd[fin] - gd[fin]).abs().max()) if bool(fin.any()) else 0.0
+    if float(e[dec].max()) > VOL_TOL or derr > 1e-5 * float(cd[fin].abs().max()) or not torch.equal(
+            torch.isinf(cd) | ~dec, torch.isinf(gd) | ~dec):
+        raise AssertionError(f"small volume CUDA vs CPU: rgba {float(e[dec].max())}, depth {derr}")
+    err = (co - go).abs().amax(-1)
+    frac = float((err <= 1e-4).double().mean())
+    if frac < 0.97:
+        raise AssertionError(f"small volume chain: {frac} of pixels within 1e-4")
+    return (f"volume rgba {float(e[dec].max()):.3g} depth {derr:.3g} at decided pixels "
+            f"({int(und[0].sum())} undecided); chain within 1e-4 at {frac * 100:.2f}% "
+            f"(max {float(err.max()):.3g})")
+
+
+def volume_phase(dev, sys_, compiled, res, traj, scene_in) -> dict:
+    """Phase 16, [volume]: the volume view at full width (the module
+    docstring lists its parts). → the kernel's results for the JSON line."""
+    t0 = time.perf_counter()
+    grid_np, tf_np, model, view, proj, s = bench_volume()
+    grid = torch.as_tensor(grid_np, device=dev)
+    tf = torch.as_tensor(tf_np, device=dev)
+    main = volume_check("bench.py 128³ DVR + 2 isos", dev, grid, tf, None, model, view, proj, s,
+                        SEED, t0)
+    # render_volume as a user calls it, a new jitter seed each frame
+    render_volume(grid, tf, model, view, proj, s, seed=0, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_volume.launches = 0
+    runs = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        for f in range(VOL_FRAMES):
+            img, dep = render_volume(grid, tf, model, view, proj, s, seed=f, device=dev)
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t1) * 1e3 / VOL_FRAMES)
+    launches = cuda_volume.launches  # read just after the main path
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if launches != 3 * VOL_FRAMES:
+        raise AssertionError(f"volume kernel launched {launches} times in {3 * VOL_FRAMES} frames")
+    if not (bool(torch.isfinite(img).all()) and float(img[..., 3].sum()) > 1.0):
+        raise AssertionError("render_volume output")
+    ms_setup = cuda_ms(lambda: ray_setup(grid.shape, model, view, proj, s, None, device=dev))
+    best = min(runs)
+    phase("volume", t0, (
+        f"render_volume {WIDTH}x{HEIGHT} frames 0-{VOL_FRAMES - 1}, ms/frame "
+        + " | ".join(f"{r:.3f}" for r in runs) + f" (best {best:.3f}; vsync contract "
+        f"{VOL_VSYNC_MS} ms: {'met' if best <= VOL_VSYNC_MS else 'missed'}); ray setup alone "
+        f"{ms_setup:.4f} ms (events); volume launches {launches}; peak mem {peak:.3f} GiB"
+    ))
+    # the in-scene SDF view of the headline result
+    t1 = time.perf_counter()
+    sdf_view(dev, sys_, compiled, res, traj, WIDTH, HEIGHT)  # warm-up
+    view_res = sdf_view(dev, sys_, compiled, res, traj, WIDTH, HEIGHT)
+    phase("volume", t0, (
+        f"in-scene SDF view {WIDTH}x{HEIGHT}: {view_res['atoms']} reference atoms, v max "
+        f"{view_res['vmax']:.4g}, ms " + ", ".join(f"{k} {v:.3f}" for k, v in view_res["times"].items())
+        + f"; launches {view_res['launches']}; {view_res['hit'] * 100:.2f}% of pixels on an atom, "
+        f"{view_res['vol'] * 100:.2f}% see the volume; largest velocity {view_res['moved']:.3g} px; "
+        f"output finite ({time.perf_counter() - t1:.2f} s for two views)"
+    ))
+    # branch coverage at 512²: a colour volume, a clip sub-box with a
+    # background, isos only
+    vgrid = torch.as_tensor(res.normalized_volume("v"), device=dev)
+    vmax = float(vgrid.max()) or 1.0
+    rec = compiled.visualization["sdf"][0]
+    ext = float(rec["extent"])
+    x0, b0 = traj.device_frame(0)
+    near = (x0.abs() < 30.0).all(-1)  # a colour volume from the box's atoms
+    pts = x0[near] - x0[near].mean(0)
+    cols = torch.as_tensor(datagen.render_inputs(sys_, 8, 8)["colors"][:, :3], device=dev)[near]
+    n = vgrid.shape[0]
+    cvol, _ = density.splat_color_volume(pts, cols, torch.ones(pts.shape[0], device=dev), (n, n, n),
+                                         torch.full((3,), -ext, device=dev),
+                                         torch.full((3,), 2 * ext / n, device=dev), blur_sigma=1.0)
+    cam = compute_optimal_view([-ext] * 3, [ext] * 3)
+    sv, sp = cam.view_matrix(), cam.proj_matrix(VOL_SMALL, VOL_SMALL)
+    sm = model_matrix_from_extent(ext)
+    iso = dict(enable_iso=True, iso_values=(0.25 * vmax, 0.6 * vmax),
+               iso_colors=((0.9, 0.4, 0.2, 0.6), (0.2, 0.5, 0.9, 0.8)))
+    base = dict(width=VOL_SMALL, height=VOL_SMALL, value_range=(0.0, vmax))
+    small_tf = torch.as_tensor(transfer_function("viridis", 256), device=dev)
+    branches = {
+        "colour volume": (cvol.contiguous(), VolumeRenderSettings(**base)),
+        "clip sub-box + background": (None, VolumeRenderSettings(
+            **base, clip_min=(0.2, 0.0, 0.3), clip_max=(0.9, 0.7, 1.0),
+            background=(0.1, 0.2, 0.3, 0.7), **iso)),
+        "isos only": (None, VolumeRenderSettings(**base, enable_dvr=False, **iso)),
+    }
+    for name, (cv, st) in branches.items():
+        volume_check(name, dev, vgrid, small_tf, cv, sm, sv, sp, st, SEED + 1, t0)
+    # TAA over the render path's frames, and the small chain on both devices
+    taa = taa_frames(dev, sys_, traj, scene_in, WIDTH, HEIGHT, RENDER_FRAMES)
+    phase("volume", t0, (
+        f"TAA over the render path's frames 0-{RENDER_FRAMES - 1} at {WIDTH}x{HEIGHT} "
+        f"(spacefill, Halton jitter): resolve ms/frame median {statistics.median(taa['ms']):.3f} "
+        f"(min {min(taa['ms']):.3f}, max {max(taa['ms']):.3f}); small chain CUDA vs CPU: "
+        f"{volume_chain(dev)}"
+    ))
+    return dict(main, launches=launches, render_ms=runs)
+
+
 def main() -> None:
     # -- 1. device ---------------------------------------------------------
     t0 = time.perf_counter()
@@ -1320,9 +1729,9 @@ def main() -> None:
 
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    cuda_build.build(dict([cuda_rdf.LIBRARY, cuda_raster.LIBRARY]))
+    cuda_build.build(dict([cuda_rdf.LIBRARY, cuda_raster.LIBRARY, cuda_volume.LIBRARY]))
     lines = []
-    for mod in (cuda_rdf, cuda_raster):
+    for mod in (cuda_rdf, cuda_raster, cuda_volume):
         secs = mod.load_kernel()
         name = mod.LIBRARY[0]
         ptxas = [
@@ -1678,6 +2087,9 @@ def main() -> None:
     # -- 15. the analysis path from files
     io = io_phase(dev, headline=ev)
 
+    # -- 16. the volume view
+    vol = volume_phase(dev, sys_, compiled, res, traj, scene_in)
+
     print(json.dumps({"kernels": [
         {
             "name": "pair_hist",
@@ -1731,6 +2143,19 @@ def main() -> None:
             "bound_ms": raster["spacefill"]["bound_ms"],
             "bound_by": raster["spacefill"]["bound_by"],
             "bound_all_candidates_ms": raster["spacefill"]["bound_all_ms"],
+            "library_ms": None,
+        },
+        {
+            "name": "volume",
+            "route": "cuda",
+            "source": "viamd_tpu_torch/csrc/volume.cu",
+            "replaces": "viamd_tpu/render/volume.py:263",
+            "launches": vol["launches"],
+            "max_abs_err": vol["max_abs_err"],
+            "ms": vol["ms"],
+            "plain_ms": vol["plain_ms"],
+            "bound_ms": vol["bound_ms"],
+            "bound_by": vol["bound_by"],
             "library_ms": None,
         },
     ]}))

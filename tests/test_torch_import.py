@@ -24,7 +24,8 @@ for mod in ("ops.cuda_rdf", "render.camera", "render.color", "render.cuda_raster
             "ops.pbc", "ops.rdf", "core.system", "script.compiler", "script.filterlang",
             "native", "eval.engine", "io.trajectory", "io.loader", "io.xtc", "io.trr",
             "io.dcd", "io.cache", "io.gro", "io.pdb", "io.xyz", "io.mmcif", "io.lammps",
-            "io.edr", "io.xvg", "io.csv"):
+            "io.edr", "io.xvg", "io.csv", "render.volume", "render.cuda_volume",
+            "render.colormap", "render.bokeh", "render.taa", "ops.histogram"):
     assert "viamd_tpu_torch." + mod in names, (mod, names)
 assert not bad, bad
 """

@@ -171,13 +171,21 @@ def test_execute_settings():
     assert PP.PostprocessSettings() == PP.PostprocessSettings(**{
         k: getattr(JP.PostprocessSettings(), k) for k in PP.PostprocessSettings.__dataclass_fields__
     })
-    for kw in (dict(enable_dof=True), dict(enable_sharpen=True)):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            PP.execute(torch.as_tensor(rgba), torch.as_tensor(depth), PP.PostprocessSettings(**kw))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        PP.execute(torch.as_tensor(rgba), torch.as_tensor(depth),
-                   PP.PostprocessSettings(enable_motion_blur=True),
-                   velocity=np.zeros((H, W, 2), np.float32))
+    # the passes that once raised run now: sharpen and motion blur to 1e-5
+    # (no hash), the bokeh DOF within its random phase (its per-pixel sin
+    # hash rounds apart, tests/test_torch_postprocess_passes.py)
+    vel = np.zeros((H, W, 2), np.float32)
+    vel[10:30, 20:40] = (5.0, -2.0)
+    for kw in (dict(enable_sharpen=True), dict(enable_motion_blur=True)):
+        want = np.asarray(JP.execute(rgba, depth, JP.PostprocessSettings(enable_fxaa=False, **kw),
+                                     velocity=vel))
+        got = PP.execute(torch.as_tensor(rgba), torch.as_tensor(depth),
+                         PP.PostprocessSettings(enable_fxaa=False, **kw), velocity=vel)
+        _close(got, want)
+    kw = dict(enable_dof=True, dof_max_blur=4.0, enable_fxaa=False)
+    want = np.asarray(JP.execute(rgba, depth, JP.PostprocessSettings(**kw)))
+    got = PP.execute(torch.as_tensor(rgba), torch.as_tensor(depth), PP.PostprocessSettings(**kw))
+    assert np.abs(got.numpy() - want).mean() < 5e-3 and abs(got.numpy().mean() - want.mean()) < 5e-4
 
 
 @pytest.mark.parametrize("rep", ["spacefill", "licorice"])

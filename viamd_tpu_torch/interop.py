@@ -1,9 +1,11 @@
-"""Move system state between viamd_tpu and viamd_tpu_torch as numpy data.
+"""Move system and render state between viamd_tpu and viamd_tpu_torch as
+numpy data.
 
 The system has no weights: its state is the topology, the cell and the
-frames. These functions build the port's objects from plain numpy arrays —
-the form in which the JAX package's `System` fields and trajectories can be
-handed over without either package importing the other.
+frames; the renderer's is the temporal history of its TAA reprojector. These functions build the
+port's objects from plain numpy arrays — the form in which the JAX
+package's `System` fields, trajectories and TAA history can be handed
+over without either package importing the other.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 from viamd_tpu_torch.core.system import Backbone, InstanceTable, LabelTable, System
 from viamd_tpu_torch.core.unitcell import UnitCell
 from viamd_tpu_torch.io.trajectory import DeviceTrajectory
+from viamd_tpu_torch.render.taa import TAAReprojector
 
 _LABEL_FIELDS = ("atom_names", "res_names", "chain_labels")
 
@@ -78,3 +81,16 @@ def trajectory_from_numpy(
         np.asarray(frames, np.float32), device=torch.device(device)
     )
     return DeviceTrajectory(stack, np.asarray(cells, np.float32))
+
+
+def taa_state_from_numpy(history, frame: int, device, feedback_min: float = 0.88,
+                         feedback_max: float = 0.97):
+    """Port `TAAReprojector` carrying on a JAX `TAAReprojector`'s sequence:
+    its `history` ((H, W, 3) float32, or None before the first frame), its
+    `frame` count and feedback bounds → a reprojector whose next `step`
+    resolves against that history on `device`."""
+    hist = None if history is None else torch.as_tensor(
+        np.array(history, np.float32), device=torch.device(device))  # a writable copy
+    return TAAReprojector(feedback_min=feedback_min, feedback_max=feedback_max,
+                          history=hist, frame=int(frame))
+

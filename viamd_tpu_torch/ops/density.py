@@ -12,6 +12,12 @@ whatever order the threads run, so two runs over the same frames would
 differ in the last bits, while int64 adds are exact in any order. The grid
 lies within one float32 rounding of the exact sum of the (rounded)
 contributions, and the CPU runs the same arithmetic as the card.
+
+Also here, for the volume view: `splat_nearest`, `gaussian_blur_3d` (a
+zero-padded separable windowed sum, the JAX form, no convolution library)
+and `splat_color_volume` (four trilinear splats, the blur, the Shepard
+division). Weights of any size go through `scaled_fixed_point_sum`, which
+scales them by a power of two below 1 first.
 """
 
 from __future__ import annotations
@@ -75,3 +81,91 @@ def fixed_point_sum(n: int, flat: torch.Tensor, wts: torch.Tensor) -> torch.Tens
     acc = torch.zeros(n, dtype=torch.int64, device=flat.device).index_add_(0, flat, q)
     return acc.to(torch.float64).mul_(2.0**-bits).to(torch.float32)
 
+
+
+def pow2_exponent(w: torch.Tensor) -> torch.Tensor:
+    """Int32 scalar e with max |w| < 2^e (0 for all-zero or empty w), on
+    w's device, without a host wait."""
+    m = w.abs().amax() if w.numel() else torch.zeros((), device=w.device)
+    return torch.frexp(m.to(torch.float32)).exponent.to(torch.int32)
+
+
+def pow2(e: torch.Tensor) -> torch.Tensor:
+    """2^e as float32 for int32 e in [−126, 127], exactly (built from its
+    bits)."""
+    return torch.bitwise_left_shift(e.to(torch.int32) + 127, 23).view(torch.float32)
+
+
+def scaled_fixed_point_sum(n: int, flat: torch.Tensor, wts: torch.Tensor) -> torch.Tensor:
+    """`fixed_point_sum` for weights of any size: the terms scaled by 2^−e
+    (max |wts| < 2^e) into (−1, 1), summed, scaled back. Scaling by a power
+    of two is exact, so the result is again the same in any order."""
+    e = pow2_exponent(wts)
+    return fixed_point_sum(n, flat, wts * pow2(-e)) * pow2(e)
+
+
+def splat_nearest(
+    pts: torch.Tensor,
+    weights: torch.Tensor,
+    dims: tuple[int, int, int],
+    origin: torch.Tensor,
+    voxel: torch.Tensor,
+) -> torch.Tensor:
+    """Nearest-voxel splat → (dx, dy, dz) float32 grid: each point adds its
+    weight to the voxel floor((p − origin) / voxel); points outside the
+    grid add nothing."""
+    dx, dy, dz = dims
+    idx3 = torch.floor((pts - origin) / voxel).to(torch.int64)
+    dims_t = device_ints(tuple(dims), pts.device)
+    inb = ((idx3 >= 0) & (idx3 < dims_t)).all(dim=-1)
+    idx3 = torch.minimum(torch.clamp_min(idx3, 0), dims_t - 1)
+    flat = (idx3[:, 0] * dy + idx3[:, 1]) * dz + idx3[:, 2]
+    w = weights.to(torch.float32)
+    w = torch.where(inb, w, torch.zeros_like(w))
+    return scaled_fixed_point_sum(dx * dy * dz, flat, w).reshape(dx, dy, dz)
+
+
+def gaussian_blur_3d(grid: torch.Tensor, sigma_voxels: float, radius: int = 0) -> torch.Tensor:
+    """Separable gaussian blur of a grid along each of its axes (the
+    Shepard smoothing of splat_color.comp; also the density volume's blur):
+    a normalized kernel of 2r + 1 taps (r = radius, or round(3σ) at least
+    1), the grid zero-padded by r on each side of the axis as jnp.pad
+    does, the taps summed in order."""
+    if sigma_voxels <= 0:
+        return grid
+    r = radius or max(1, int(3.0 * sigma_voxels + 0.5))
+    t = torch.arange(-r, r + 1, dtype=torch.float32, device=grid.device)
+    k = torch.exp(-0.5 * (t / sigma_voxels) ** 2)
+    k = k / k.sum()
+    for ax in range(grid.ndim):
+        g = grid.movedim(ax, -1)
+        n = g.shape[-1]
+        padded = torch.nn.functional.pad(g, (r, r))
+        out = padded[..., 0:n] * k[0]
+        for i in range(1, 2 * r + 1):
+            out = out + padded[..., i : i + n] * k[i]
+        grid = out.movedim(-1, ax)
+    return grid.contiguous()
+
+
+def splat_color_volume(
+    pts, colors, weights, dims, origin, voxel, blur_sigma: float = 0.0
+):
+    """Shepard-weighted colour volume from coloured points → ((dx, dy, dz,
+    3) RGB, (dx, dy, dz) weight density): trilinear splats of w and of
+    w·r, w·g, w·b, the optional blur of all four (which keeps the Shepard
+    average), then rgb = Σ w·c / max(Σ w, 1e-12) (splat_color.comp, the
+    colour volume of the colvol ray-marcher). All four splats share one
+    power-of-two scale, so weights of any size sum in fixed point."""
+    w = torch.as_tensor(weights, dtype=torch.float32, device=pts.device)
+    cols = torch.as_tensor(colors, dtype=torch.float32, device=pts.device)
+    terms = [w] + [w * cols[:, i] for i in range(3)]
+    e = pow2_exponent(torch.stack(terms))
+    down, up = pow2(-e), pow2(e)
+    den, *chans = (splat_trilinear(pts, t * down, dims, origin, voxel) * up
+                   for t in terms)
+    if blur_sigma > 0:
+        den = gaussian_blur_3d(den, blur_sigma)
+        chans = [gaussian_blur_3d(c, blur_sigma) for c in chans]
+    rgb = torch.stack(chans, dim=-1) / torch.clamp_min(den, 1e-12)[..., None]
+    return rgb, den

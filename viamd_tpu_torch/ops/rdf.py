@@ -89,6 +89,14 @@ def sqrt_rn(s: torch.Tensor) -> torch.Tensor:
     return torch.where(s64 < m_lo * m_lo, lo, torch.where(s64 > m_hi * m_hi, hi, y))
 
 
+def div_rn(a: torch.Tensor, b: float) -> torch.Tensor:
+    """a / b for a Python number b, correctly rounded on every device: on
+    CUDA, PyTorch divides by a Python number as a multiplication by its
+    reciprocal, so the divisor goes in as a 0-dim tensor on a's device (a
+    fill, no copy from the host)."""
+    return a / torch.full((), b, dtype=a.dtype, device=a.device)
+
+
 def pair_dist_histogram_scatter_idx(
     x: torch.Tensor,
     idx_a: torch.Tensor,  # (na,) global indices of the A selection

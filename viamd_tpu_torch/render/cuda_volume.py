@@ -1,0 +1,348 @@
+"""The volume ray-march: the CUDA kernel's wrapper and its plain PyTorch
+version.
+
+Counterpart of the march of viamd_tpu/render/volume.py (`_render_impl`'s
+`step` loop, :263-316, and the background compose, :318-320) — an XLA
+`fori_loop`, not a Pallas kernel. csrc/volume.cu replaces it: one thread per
+pixel walks its ray with the whole loop in registers.
+
+The per-ray setup (render/volume.py::ray_setup) is shared by both versions.
+It gives a (len(RAY_FIELDS), P) float32 table, one row per field:
+
+    ox oy oz   ray origin at NDC z = −1, texture space
+    dx dy dz   ray direction (to the NDC z = 0 point), texture space
+    t0 t1      entry and exit of the clip box, t1 clamped by the scene depth
+    dt tex_dt  step in t ((t1 − t0) / nsteps where hit, else 0) and its
+               texture-space length dt·|d|
+    vx vy vz   unit view direction −d / |d|
+    jit        the ray's jitter in [0, 1) (0 without jitter)
+    hit        1.0 where t1 > t0, else 0.0
+
+Step k of a ray (k = 0 … nsteps − 1) samples the grid at t = t0 + (k +
+jit)·dt and is live while hit, alpha < 0.995 and k·dt + t0 < t1. A live
+step first composites each isosurface the segment from the last sample
+crosses (k > 0, in iso order, shaded with the central-difference normal
+at the interpolated hit), then the transfer function's colour with its
+opacity corrected to the reference rate, 1 − max(1 − a, 1e-7)^(tex_dt·150);
+the depth is set at the first iso hit or where alpha first passes 0.5.
+Once a step is not live no later one is (alpha never falls, k·dt + t0
+never shrinks), so the kernel leaves the loop there and gets what the
+masked loop gets.
+
+`march` takes the plain version, `march_plain`, for CPU tensors only; for
+CUDA tensors it launches the kernel or raises. Both evaluate every
+expression in the same order with correctly rounded float32 operations
+(the library is built with -fmad=false; the plain version takes
+`sqrt_rn` and `div_rn`, since PyTorch's CPU sqrt is not
+correctly rounded and its CUDA division by a Python number multiplies by
+the reciprocal), so they agree up to the rounding of `powf` against
+`torch.pow`, and through it at undecided pixels
+(`march_plain(undecided=...)`).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+
+from viamd_tpu_torch.cuda_build import build_info, check_tensor as _check, load_library
+from viamd_tpu_torch.ops.rdf import div_rn, sqrt_rn
+
+__all__ = [
+    "EARLY_TERMINATION_ALPHA",
+    "MAX_ISO",
+    "MarchParams",
+    "RAY_FIELDS",
+    "REF_SAMPLING_RATE",
+    "launches",
+    "load_kernel",
+    "march",
+    "march_plain",
+]
+
+EARLY_TERMINATION_ALPHA = 0.995  # raycaster.frag:51
+REF_SAMPLING_RATE = 150.0  # raycaster.frag:50
+MAX_ISO = 8  # isosurfaces the kernel takes (its parameter block holds 8)
+
+RAY_FIELDS = ("ox", "oy", "oz", "dx", "dy", "dz", "t0", "t1", "dt", "tex_dt",
+              "vx", "vy", "vz", "jit", "hit")
+
+# The decisions a float rounding can flip, for `march_plain(undecided=...)`:
+# a sample within UNDECIDED_S·max|grid| of an iso value (crossing or not),
+# alpha within UNDECIDED_ALPHA of 0.995 or 0.5, t1 − t0 within
+# UNDECIDED_T·(|t0| + |t1|) of 0.
+UNDECIDED_S, UNDECIDED_ALPHA, UNDECIDED_T = 1e-4, 1e-5, 1e-5
+
+# kernel launches since import (reset freely by callers that count a run)
+launches = 0
+
+# (library name, sources in csrc/) for cuda_build
+LIBRARY = ("volume", ("volume.cu",))
+
+_lib = None
+
+
+class MarchParams(NamedTuple):
+    """The march's settings as the kernel takes them: float32 values
+    rounded as the JAX package rounds its Python constants
+    (render/volume.py::march_params builds them)."""
+
+    nsteps: int
+    enable_dvr: bool
+    use_cvol: bool
+    vmin: float
+    vspan: float
+    lx: float  # unit light direction
+    ly: float
+    lz: float
+    ambient: float
+    one_m_amb: float  # f32(1 − ambient)
+    specular: float
+    shininess: float
+    h: float  # f32(1 / max(dims)): the gradient's half step
+    bg_r: float
+    bg_g: float
+    bg_b: float
+    bg_a: float
+    iso_values: tuple  # (n_iso,) f32
+    iso_colors: tuple  # (n_iso,) of (r, g, b, a) f32
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        lib = load_library(*LIBRARY)
+        lib.volume_launch.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ]
+        lib.volume_launch.restype = ctypes.c_int
+        lib.volume_max_iso.argtypes = []
+        lib.volume_max_iso.restype = ctypes.c_int
+        lib.volume_num_rays.argtypes = []
+        lib.volume_num_rays.restype = ctypes.c_int
+        if lib.volume_max_iso() != MAX_ISO or lib.volume_num_rays() != len(RAY_FIELDS):
+            raise RuntimeError("csrc/volume.cu and render/cuda_volume.py disagree")
+        _lib = lib
+    return _lib
+
+
+def load_kernel() -> float:
+    """Build (first call) and load the kernel library; returns the build
+    seconds, 0 when an earlier build was reused."""
+    _library()
+    return build_info[LIBRARY[0]]["seconds"]
+
+
+# -- samplers (render/volume.py re-exports them) -------------------------------
+
+
+def _corners(grid_shape, px, py, pz):
+    """Trilinear corners at texture coords: [(flat index, weight)] × 8 in
+    corner order (x, y, z bits 2, 1, 0), clamp-to-edge."""
+    d0, d1, d2 = grid_shape[:3]
+    out = []
+    axes = []
+    for p, n in ((px, d0), (py, d1), (pz, d2)):
+        g = p * float(n) - 0.5
+        g0 = torch.floor(g)
+        f = g - g0
+        i0 = g0.to(torch.int64)
+        axes.append((i0.clamp(0, n - 1), (i0 + 1).clamp(0, n - 1), 1.0 - f, f))
+    for corner in range(8):
+        ox, oy, oz = (corner >> 2) & 1, (corner >> 1) & 1, corner & 1
+        (ax, ay, az) = axes
+        ix, iy, iz = ax[ox], ay[oy], az[oz]
+        wt = ax[2 + ox] * ay[2 + oy] * az[2 + oz]
+        out.append(((ix * d1 + iy) * d2 + iz, wt))
+    return out
+
+
+def _sample_trilinear(grid: torch.Tensor, px, py, pz) -> torch.Tensor:
+    """Trilinear sample of a (D0, D1, D2) grid at texture coords in [0,
+    1]³ (clamp-to-edge), each coordinate a tensor of one shape."""
+    flat = grid.reshape(-1)
+    out = torch.zeros_like(px)
+    for idx, wt in _corners(grid.shape, px, py, pz):
+        out = out + wt * flat[idx]
+    return out
+
+
+def _sample_trilinear_c(grid: torch.Tensor, px, py, pz) -> list:
+    """Trilinear sample of a (D0, D1, D2, C) grid → C tensors."""
+    c = grid.shape[3]
+    flat = grid.reshape(-1, c)
+    out = [torch.zeros_like(px) for _ in range(c)]
+    for idx, wt in _corners(grid.shape, px, py, pz):
+        v = flat[idx]
+        out = [o + wt * v[..., j] for j, o in enumerate(out)]
+    return out
+
+
+def _sample_tf(tf: torch.Tensor, u: torch.Tensor) -> list:
+    """Linear lookup into an (N, 4) RGBA transfer function at u ∈ [0, 1]
+    (clamped) → 4 tensors."""
+    n = tf.shape[0]
+    x = u.clamp(0.0, 1.0) * float(n - 1)
+    i0 = torch.floor(x).to(torch.int64).clamp(0, n - 1)
+    i1 = (i0 + 1).clamp(0, n - 1)
+    f = x - i0.to(torch.float32)
+    a, b = tf[i0], tf[i1]
+    g = 1.0 - f
+    return [a[..., j] * g + b[..., j] * f for j in range(4)]
+
+
+# -- the march --------------------------------------------------------------------
+
+
+def march(grid, tf, cvol, rays, width: int, height: int, params: MarchParams):
+    """March every ray of the (len(RAY_FIELDS), P = height·width) table →
+    ((height, width, 4) rgba, (height, width) depth, +inf where nothing
+    was hit): the kernel on CUDA, the plain version on the CPU. `cvol`: a
+    (D0', D1', D2', 3) colour volume when params.use_cvol, else None."""
+    global launches
+    dev = grid.device
+    if dev.type == "cpu":
+        return march_plain(grid, tf, cvol, rays, width, height, params)
+    if dev.type != "cuda":
+        raise ValueError(f"no volume route for device {dev}")
+    n_iso = len(params.iso_values)
+    if n_iso > MAX_ISO:
+        raise ValueError(f"{n_iso} isosurfaces: the kernel takes at most {MAX_ISO}")
+    P = width * height
+    _check(grid, "grid", torch.float32, grid.shape, dev)
+    if grid.ndim != 3:
+        raise ValueError(f"grid: shape {tuple(grid.shape)}, expected (D0, D1, D2)")
+    _check(tf, "tf", torch.float32, (tf.shape[0], 4), dev)
+    _check(rays, "rays", torch.float32, (len(RAY_FIELDS), P), dev)
+    if params.use_cvol:
+        if cvol is None or cvol.ndim != 4:
+            raise ValueError("use_cvol needs a (D0, D1, D2, 3) colour volume")
+        _check(cvol, "cvol", torch.float32, (*cvol.shape[:3], 3), dev)
+        cdims, cptr = tuple(cvol.shape[:3]), cvol.data_ptr()
+    else:
+        cdims, cptr = (1, 1, 1), None
+    lib = _library()
+    rgba = torch.empty((height, width, 4), dtype=torch.float32, device=dev)
+    depth = torch.empty((height, width), dtype=torch.float32, device=dev)
+    scal = (
+        params.vmin, params.vspan, params.lx, params.ly, params.lz,
+        params.ambient, params.one_m_amb, params.specular, params.shininess,
+        params.h, params.bg_r, params.bg_g, params.bg_b, params.bg_a,
+    )
+    fs = (ctypes.c_float * len(scal))(*scal)
+    iso = [v for i in range(n_iso) for v in (params.iso_values[i], *params.iso_colors[i])]
+    isos = (ctypes.c_float * max(len(iso), 1))(*iso)
+    err = lib.volume_launch(
+        grid.data_ptr(), *grid.shape, tf.data_ptr(), tf.shape[0], cptr, *cdims,
+        rays.data_ptr(), P, params.nsteps, int(params.enable_dvr),
+        int(params.use_cvol), n_iso, ctypes.cast(fs, ctypes.c_void_p),
+        ctypes.cast(isos, ctypes.c_void_p), rgba.data_ptr(), depth.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"volume kernel launch failed: CUDA error {err}")
+    launches += 1
+    return rgba, depth
+
+
+def march_plain(grid, tf, cvol, rays, width: int, height: int, params: MarchParams,
+                undecided=None, work=None):
+    """The plain PyTorch version of csrc/volume.cu: JAX's masked loop, all
+    rays one step at a time, in the kernel's order of operations.
+
+    `undecided`, a list, receives the (height, width) bool map of pixels
+    where a float rounding could flip a decision (see UNDECIDED_*).
+    `work`, a dict, receives the live samples and iso crossings marched."""
+    F = dict(zip(RAY_FIELDS, rays))
+    ox, oy, oz, dx, dy, dz = (F[k] for k in ("ox", "oy", "oz", "dx", "dy", "dz"))
+    t0, t1, dt, tex_dt, jit = F["t0"], F["t1"], F["dt"], F["tex_dt"], F["jit"]
+    vx, vy, vz = F["vx"], F["vy"], F["vz"]
+    hit = F["hit"] > 0.0
+    p = params
+    zeros = torch.zeros_like(t0)
+    rgb = [zeros, zeros, zeros]
+    alpha = zeros
+    depth = torch.full_like(t0, 1e30)
+    prev_s = zeros
+    # the half vector is the same at every step
+    hx, hy, hz = p.lx + vx, p.ly + vy, p.lz + vz
+    hn = torch.clamp_min(sqrt_rn(hx * hx + hy * hy + hz * hz), 1e-12)
+    hx, hy, hz = hx / hn, hy / hn, hz / hn
+    track = undecided is not None
+    if track:
+        smax = float(grid.abs().max()) if grid.numel() else 0.0
+        eps_s = UNDECIDED_S * smax
+        und = (t1 - t0).abs() <= UNDECIDED_T * (t0.abs() + t1.abs())
+    n_live = n_cross = 0
+    for k in range(p.nsteps):
+        kf = float(k)
+        t = t0 + (kf + jit) * dt
+        px, py, pz = ox + dx * t, oy + dy * t, oz + dz * t
+        s = _sample_trilinear(grid, px, py, pz)
+        live = hit & (alpha < EARLY_TERMINATION_ALPHA) & (kf * dt + t0 < t1)
+        if work is not None:
+            n_live += int(live.sum())
+        if track:
+            und = und | (hit & ((alpha - EARLY_TERMINATION_ALPHA).abs() <= UNDECIDED_ALPHA)
+                         & (kf * dt + t0 < t1))
+        trans = 1.0 - alpha
+        for vi, col in zip(p.iso_values, p.iso_colors):
+            if k == 0:
+                break
+            crossed = live & ((prev_s - vi) * (s - vi) < 0.0)
+            if track:
+                near = torch.minimum((prev_s - vi).abs(), (s - vi).abs()) <= eps_s
+                und = und | (live & near)
+            if work is not None:
+                n_cross += int(crossed.sum())
+            ds = s - prev_s
+            frac = torch.where(ds.abs() > 1e-12, (vi - prev_s) / ds, zeros + 0.5)
+            t_hit = t0 + (((kf - 1.0) + jit) + frac.clamp(0.0, 1.0)) * dt
+            qx, qy, qz = ox + dx * t_hit, oy + dy * t_hit, oz + dz * t_hit
+            gx = (_sample_trilinear(grid, qx + p.h, qy, qz)
+                  - _sample_trilinear(grid, qx - p.h, qy, qz))
+            gy = (_sample_trilinear(grid, qx, qy + p.h, qz)
+                  - _sample_trilinear(grid, qx, qy - p.h, qz))
+            gz = (_sample_trilinear(grid, qx, qy, qz + p.h)
+                  - _sample_trilinear(grid, qx, qy, qz - p.h))
+            gn = torch.clamp_min(sqrt_rn(gx * gx + gy * gy + gz * gz), 1e-12)
+            nx, ny, nz = gx / gn, gy / gn, gz / gn
+            ndl = (nx * p.lx + ny * p.ly + nz * p.lz).abs()
+            ndh = (nx * hx + ny * hy + nz * hz).abs()
+            spec = p.specular * torch.pow(ndh, p.shininess)
+            lum = p.ambient + p.one_m_amb * ndl
+            contrib = torch.where(crossed, trans * col[3], zeros)
+            rgb = [c + (col[j] * lum + spec) * contrib for j, c in enumerate(rgb)]
+            alpha = alpha + contrib
+            depth = torch.where(crossed & (depth >= 1e30), t_hit, depth)
+            trans = 1.0 - alpha
+        if p.enable_dvr:
+            c = _sample_tf(tf, div_rn(s - p.vmin, p.vspan))
+            a_corr = 1.0 - torch.pow(torch.clamp_min(1.0 - c[3], 1e-7),
+                                     tex_dt * REF_SAMPLING_RATE)
+            a_eff = torch.where(live, trans * a_corr, zeros)
+            base = _sample_trilinear_c(cvol, px, py, pz) if p.use_cvol else c[:3]
+            rgb = [acc + b * a_eff for acc, b in zip(rgb, base)]
+            alpha = alpha + a_eff
+            if track:
+                und = und | (live & ((alpha - 0.5).abs() <= UNDECIDED_ALPHA))
+            depth = torch.where((alpha > 0.5) & (depth >= 1e30), t, depth)
+        prev_s = s
+    one_m_a = 1.0 - alpha
+    out = [c + bg * one_m_a * p.bg_a for c, bg in zip(rgb, (p.bg_r, p.bg_g, p.bg_b))]
+    img = torch.stack([*out, alpha], dim=-1).reshape(height, width, 4)
+    dep = torch.where(depth >= 1e30, torch.full_like(depth, float("inf")), depth)
+    if track:
+        undecided.append(und.reshape(height, width))
+    if work is not None:
+        work["samples"] = work.get("samples", 0) + n_live
+        work["crossings"] = work.get("crossings", 0) + n_cross
+    return img, dep.reshape(height, width)
