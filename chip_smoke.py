@@ -99,19 +99,24 @@ line each (phase 16 several):
    `import` of a 384-row `.xvg`;
 16. `[volume]`: the volume view. bench.py's volume configuration at
    1920×1080 (128³ two-Gaussian grid, viridis TF at alpha 0.6, DVR + isos
-   0.25 and 0.6, jitter): csrc/volume.cu against march_plain on the same
-   ray table and jitter over the whole frame (max rgba and depth error at
-   decided pixels, the undecided ones counted), the live samples and iso
-   crossings, the kernel's device time behind a queued sleep and with
-   events around the call, the plain time, the bound; render_volume's
-   ms/frame over 16 frames (a new seed each), three runs, against the
-   16.7 ms vsync contract, with the launch count set to 0 before and read
-   after, and peak memory. Then the in-scene SDF view of the headline
+   0.25 and 0.6, jitter): csrc/volume.cu (ray setup and march in one
+   launch) against its plain version, ray_setup + march_plain, on the same
+   parameter block and jitter over the whole frame — the ray table the
+   kernel writes to `rays_out` equal to ray_setup's with 0 differing words,
+   max rgba and depth error at decided pixels, the undecided ones counted —
+   the live samples and iso crossings, the kernel's registers and spills,
+   its device time behind a queued sleep and with events around the call,
+   the plain time, the bound of the fused
+   function and that of the march alone; render_volume's ms/frame over 16
+   frames (a new seed each), three runs, against the 16.7 ms vsync
+   contract, with the launch count set to 0 before and read after, peak
+   memory, and ray_setup alone (the plain setup). Then the in-scene SDF view of the headline
    result (the normalized `v`, 64³ over ±5 Å; frame 0's reference waters
    aligned by sdf_reference_frames at 0.3 × vdW through raster.cu; the
    volume marched to their depth; the OVER composite; execute with HBAO,
    motion blur from frames 0 → 1, bokeh DOF, ACES, FXAA and sharpen), each
-   stage timed; the kernel against march_plain at 512² with a colour
+   stage timed, and the kernel against its plain version there (the ray
+   table with the scene-depth clamp); the same at 512² with a colour
    volume (splat_color_volume), a clip sub-box with a background, and isos
    only; TAAReprojector over the render path's frames 0–15 with Halton
    jitter, the resolve timed; and the small volume + postprocess chain on
@@ -177,6 +182,7 @@ from viamd_tpu_torch.render.volume import (
     VolumeRenderSettings,
     march_params,
     model_matrix_from_extent,
+    ray_params,
     ray_setup,
     render_volume,
 )
@@ -285,6 +291,15 @@ VOL_TOL = 1e-5  # kernel vs plain: powf against torch.pow; all else exact
 # the shading and compositing (351); per pixel, the half vector, the
 # hit test and the background compose (25)
 OPS_VSTEP, OPS_VDVR, OPS_VISO, OPS_VCROSS, OPS_VRAY = 61, 35, 4, 351, 25
+# f32 operations of the ray setup per pixel (csrc/volume.cu, the kernel's
+# first part): the NDC point (8); four 4x4 transforms, each 12 products and
+# sums, the guard (3) and 3 divisions (4 × 30); d = e − o (3); the box test
+# per axis, the guard (2), the reciprocal (1), 2 differences and 2
+# products, min and max, and the running max and min (2 on axes 1, 2) =
+# 31, and t0's clamp (1); hit, dt (2), |d| (6), tex_dt, the clamp, 3
+# negations and 3 divisions (17). With a scene depth, two view depths
+# (2 × 7), their difference, guard (2), t_scene (2), isfinite, the min (21)
+OPS_VSETUP, OPS_VSCENE = 180, 21
 
 
 def host_ms(fn, reps: int = 20, queued: bool = False) -> float:
@@ -1400,54 +1415,79 @@ def compare_volume(got, want, und) -> dict:
                 max_abs_err=max(float(e_rgba[dec].max()), float(e_dep[dec].max())))
 
 
-def volume_bound(rays, params, work, grid, tf, cvol=None) -> tuple:
-    """(bound ms, bound_by, ops, bytes) of one march: the operations its
-    live samples and crossings need (work: march_plain's counts), and the
-    ray table, grid, TF and colour volume read once and the outputs
-    written once."""
+def volume_bound(rays, params, work, grid, tf, cvol=None, jitter=None, scene_depth=None) -> dict:
+    """The bounds of one frame (ms, bound_by, ops, bytes each): `fused`,
+    the kernel's function — the setup's operations per pixel and the
+    march's for its live samples and crossings (work: march_plain's
+    counts), the grid, TF, colour volume, jitter and scene depth read once
+    and the outputs written once; `march`, the march alone on a ray table
+    (the table read once instead of the setup's operations and inputs)."""
     P = rays.shape[1]
     hits = int((rays[cuda_volume.RAY_FIELDS.index("hit")] > 0).sum())
     n_iso = len(params.iso_values)
     ops = (work["samples"] * (OPS_VSTEP + (OPS_VDVR if params.enable_dvr else 0))
            + max(work["samples"] - hits, 0) * n_iso * OPS_VISO
            + work["crossings"] * OPS_VCROSS + P * OPS_VRAY)
-    nbytes = (rays.numel() + grid.numel() + tf.numel()
-              + (cvol.numel() if cvol is not None else 0) + P * 5) * 4
-    ms, by = bound(ops, nbytes)
-    return ms, by, ops, nbytes
+    volumes = grid.numel() + tf.numel() + (cvol.numel() if cvol is not None else 0)
+    nbytes = (rays.numel() + volumes + P * 5) * 4
+    fused_ops = ops + P * (OPS_VSETUP + (OPS_VSCENE if scene_depth is not None else 0))
+    fused_bytes = (volumes + P * 5 + (P if jitter is not None else 0)
+                   + (P if scene_depth is not None else 0)) * 4
+    return {"march": (*bound(ops, nbytes), ops, nbytes),
+            "fused": (*bound(fused_ops, fused_bytes), fused_ops, fused_bytes)}
 
 
-def volume_check(name, dev, grid, tf, cvol, model, view, proj, s, seed, t0) -> dict:
-    """The kernel against march_plain on one ray table with jitter: the
-    comparison, the work, the kernel's device time behind a queued sleep
-    and with events around the call, the plain time, the bound."""
+def volume_check(name, dev, grid, tf, cvol, model, view, proj, s, seed, t0,
+                 scene_depth=None) -> dict:
+    """The kernel against its plain version (ray_setup + march_plain) on one
+    parameter block and jitter: the ray table it writes to `rays_out`
+    against ray_setup's on the card word for word (raises unless 0
+    differ), the frames compared, the work, the kernel's device time
+    behind a queued sleep and with events around `render`, the plain
+    time, both bounds."""
     params = march_params(grid.shape, s, cvol is not None)
+    rp = ray_params(grid.shape, model, view, proj, s)
     jit = torch.rand(s.width * s.height, generator=torch.Generator(device=dev).manual_seed(seed),
                      device=dev) if s.jitter else None
-    rays = ray_setup(grid.shape, model, view, proj, s, jit, device=dev)
-    args = (grid, tf, cvol, rays, s.width, s.height, params)
-    got = cuda_volume.march(*args)
+    table = torch.full((len(cuda_volume.RAY_FIELDS), s.width * s.height), float("nan"), device=dev)
+    got = cuda_volume.render(grid, tf, cvol, rp, params, jit, scene_depth, rays_out=table)
+    rays = ray_setup(rp, jit, scene_depth, device=dev)
+    torch.cuda.synchronize()
+    differ = (table.view(torch.int32) != rays.view(torch.int32)).sum(1)
+    if int(differ.sum()):
+        raise AssertionError(f"{name}: the kernel's ray table differs from ray_setup's in "
+                             f"{int(differ.sum())} words: " + ", ".join(
+                                 f"{f} {int(n)}" for f, n in zip(cuda_volume.RAY_FIELDS, differ) if n))
     und, work = [], {}
-    want = cuda_volume.march_plain(*args, undecided=und, work=work)
+    want = cuda_volume.march_plain(grid, tf, cvol, rays, s.width, s.height, params, undecided=und,
+                                   work=work)
     torch.cuda.synchronize()
     cmp = compare_volume(got, want, und[0])
-    ms = cuda_ms(lambda: cuda_volume.march(*args), queued=True)
-    ms_call = cuda_ms(lambda: cuda_volume.march(*args))
-    plain_ms = cuda_ms(lambda: cuda_volume.march_plain(*args), reps=1, warmup=0)
-    b_ms, b_by, ops, nbytes = volume_bound(rays, params, work, grid, tf, cvol)
+    def call():
+        return cuda_volume.render(grid, tf, cvol, rp, params, jit, scene_depth)
+
+    ms = cuda_ms(call, queued=True)
+    ms_call = cuda_ms(call)
+    plain_ms = cuda_ms(lambda: cuda_volume.render_plain(grid, tf, cvol, rp, params, jit, scene_depth),
+                       reps=1, warmup=0)
+    bounds = volume_bound(rays, params, work, grid, tf, cvol, jit, scene_depth)
+    (b_ms, b_by, ops, nbytes), (m_ms, m_by, _, _) = bounds["fused"], bounds["march"]
+    hit = rays[cuda_volume.RAY_FIELDS.index("hit")] > 0
     phase("volume", t0, (
         f"{name} {s.width}x{s.height}, grid {tuple(grid.shape)}, {params.nsteps} steps, "
         f"{len(params.iso_values)} isos, dvr {params.enable_dvr}, colour volume "
-        f"{cvol is not None}: live samples {work['samples']}, iso crossings "
-        f"{work['crossings']}; kernel vs plain max rgba err {cmp['rgba_err']:.3g}, depth err "
-        f"{cmp['depth_err']:.3g} (decided pixels), undecided {cmp['undecided']} "
-        f"({cmp['undecided_off']} of them off); kernel {ms:.4f} ms (device, queued; events "
-        f"around the call {ms_call:.4f} ms), plain {plain_ms:.1f} ms, plain/kernel "
-        f"{plain_ms / ms:.0f}x; bound {b_ms:.4f} ms ({b_by}; {ops:.6g} operations, "
-        f"{nbytes} bytes), kernel at {b_ms / ms * 100:.1f}% of the bound"
+        f"{cvol is not None}, scene depth {scene_depth is not None}: ray table vs ray_setup 0 "
+        f"differing words of {table.numel()} ({int(hit.sum())} rays hit); live samples "
+        f"{work['samples']}, iso crossings {work['crossings']}; kernel vs plain max rgba err "
+        f"{cmp['rgba_err']:.3g}, depth err {cmp['depth_err']:.3g} (decided pixels), undecided "
+        f"{cmp['undecided']} ({cmp['undecided_off']} of them off); kernel {ms:.4f} ms (device, "
+        f"queued; events around render {ms_call:.4f} ms), plain "
+        f"(ray_setup + march_plain) {plain_ms:.1f} ms, plain/kernel {plain_ms / ms:.0f}x; fused "
+        f"bound {b_ms:.4f} ms ({b_by}; {ops:.6g} operations, {nbytes} bytes), kernel at "
+        f"{b_ms / ms * 100:.1f}% of it; march-alone bound {m_ms:.4f} ms ({m_by})"
     ))
     return dict(cmp, ms=ms, call_ms=ms_call, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                work=work)
+                bound_march_ms=m_ms, work=work)
 
 
 def screen_xy(x, view, proj, width: int, height: int):
@@ -1515,9 +1555,10 @@ def sdf_view(dev, sys_, compiled, res, traj, width: int, height: int) -> dict:
         iso_values=tuple(f * vmax for f in SDF_ISO_FRACTIONS),
         iso_colors=tuple((float(r), float(g), float(b), 0.8) for r, g, b in plasma),
     )
+    vtf = torch.as_tensor(transfer_function("viridis", 256), device=dev)
+    vmodel = model_matrix_from_extent(extent)
     t1 = time.perf_counter()
-    vimg, _ = render_volume(grid, transfer_function("viridis", 256), model_matrix_from_extent(extent),
-                            view, proj, s, seed=0, scene_depth=dep, device=dev)
+    vimg, _ = render_volume(grid, vtf, vmodel, view, proj, s, seed=0, scene_depth=dep, device=dev)
     stamp("volume", t1)
     t1 = time.perf_counter()
     va = vimg[..., 3:4]
@@ -1541,7 +1582,8 @@ def sdf_view(dev, sys_, compiled, res, traj, width: int, height: int) -> dict:
     if not (hit > 0.001 and vol > 0.01):
         raise AssertionError(f"sdf view: {hit} of pixels hit an atom, {vol} see the volume")
     return dict(times=times, launches=launches, out=out, hit=hit, vol=vol, atoms=len(atoms),
-                vmax=vmax, moved=float(vel.abs().max()))
+                vmax=vmax, moved=float(vel.abs().max()),
+                volume_inputs=(grid, vtf, vmodel, view, proj, s, dep.contiguous()))
 
 
 def taa_frames(dev, sys_, traj, scene_in, width: int, height: int, n_frames: int) -> dict:
@@ -1604,7 +1646,7 @@ def volume_chain(dev, width: int = 160, height: int = 120) -> str:
         out = postprocess.execute(img, dep, pp, velocity=vel, proj=proj)
         res[str(d)] = [v.cpu() for v in (img, dep, out)]
     (ci, cd, co), (gi, gd, go) = res["cpu"], res[str(dev)]
-    rays = ray_setup(grid.shape, model, view, proj, s, device="cpu")
+    rays = ray_setup(ray_params(grid.shape, model, view, proj, s), device="cpu")
     und = []
     cuda_volume.march_plain(torch.as_tensor(grid), torch.as_tensor(tf), None, rays, width, height,
                             march_params(grid.shape, s, False), undecided=und)
@@ -1628,6 +1670,9 @@ def volume_phase(dev, sys_, compiled, res, traj, scene_in) -> dict:
     """Phase 16, [volume]: the volume view at full width (the module
     docstring lists its parts). → the kernel's results for the JSON line."""
     t0 = time.perf_counter()
+    ptxas = [ln.strip() for ln in cuda_build.build_info["volume"]["log"].splitlines()
+             if "registers" in ln or "spill" in ln]
+    phase("volume", t0, "csrc/volume.cu ptxas: " + (" | ".join(ptxas) or "(build reused)"))
     grid_np, tf_np, model, view, proj, s = bench_volume()
     grid = torch.as_tensor(grid_np, device=dev)
     tf = torch.as_tensor(tf_np, device=dev)
@@ -1636,6 +1681,7 @@ def volume_phase(dev, sys_, compiled, res, traj, scene_in) -> dict:
     # render_volume as a user calls it, a new jitter seed each frame
     render_volume(grid, tf, model, view, proj, s, seed=0, device=dev)
     torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     cuda_volume.launches = 0
     runs = []
@@ -1647,17 +1693,24 @@ def volume_phase(dev, sys_, compiled, res, traj, scene_in) -> dict:
         runs.append((time.perf_counter() - t1) * 1e3 / VOL_FRAMES)
     launches = cuda_volume.launches  # read just after the main path
     peak = torch.cuda.max_memory_allocated() / 2**30
+    grown = (torch.cuda.max_memory_allocated() - base) / 2**20
+    table = len(cuda_volume.RAY_FIELDS) * WIDTH * HEIGHT * 4 / 2**20
     if launches != 3 * VOL_FRAMES:
         raise AssertionError(f"volume kernel launched {launches} times in {3 * VOL_FRAMES} frames")
+    if grown >= table:  # two frames' outputs and a jitter draw fit under one ray table
+        raise AssertionError(f"render_volume allocated {grown:.1f} MiB: a ray table ({table:.1f} MiB)?")
     if not (bool(torch.isfinite(img).all()) and float(img[..., 3].sum()) > 1.0):
         raise AssertionError("render_volume output")
-    ms_setup = cuda_ms(lambda: ray_setup(grid.shape, model, view, proj, s, None, device=dev))
+    ms_setup = cuda_ms(lambda: ray_setup(ray_params(grid.shape, model, view, proj, s), None,
+                                         device=dev))
     best = min(runs)
     phase("volume", t0, (
         f"render_volume {WIDTH}x{HEIGHT} frames 0-{VOL_FRAMES - 1}, ms/frame "
         + " | ".join(f"{r:.3f}" for r in runs) + f" (best {best:.3f}; vsync contract "
-        f"{VOL_VSYNC_MS} ms: {'met' if best <= VOL_VSYNC_MS else 'missed'}); ray setup alone "
-        f"{ms_setup:.4f} ms (events); volume launches {launches}; peak mem {peak:.3f} GiB"
+        f"{VOL_VSYNC_MS} ms: {'met' if best <= VOL_VSYNC_MS else 'missed'}); volume launches "
+        f"{launches} (one a frame); peak mem {peak:.3f} GiB, {grown:.1f} MiB allocated over the "
+        f"frames (a ray table would be {table:.1f} MiB: none); the plain ray_setup alone (not on "
+        f"this path) {ms_setup:.4f} ms (events)"
     ))
     # the in-scene SDF view of the headline result
     t1 = time.perf_counter()
@@ -1670,6 +1723,9 @@ def volume_phase(dev, sys_, compiled, res, traj, scene_in) -> dict:
         f"{view_res['vol'] * 100:.2f}% see the volume; largest velocity {view_res['moved']:.3g} px; "
         f"output finite ({time.perf_counter() - t1:.2f} s for two views)"
     ))
+    vgrid_in, vtf_in, vmodel_in, vview_in, vproj_in, vs_in, vdep_in = view_res["volume_inputs"]
+    volume_check("in-scene SDF view", dev, vgrid_in, vtf_in, None, vmodel_in, vview_in, vproj_in,
+                 vs_in, SEED + 2, t0, scene_depth=vdep_in)
     # branch coverage at 512²: a colour volume, a clip sub-box with a
     # background, isos only
     vgrid = torch.as_tensor(res.normalized_volume("v"), device=dev)
@@ -2156,6 +2212,8 @@ def main() -> None:
             "plain_ms": vol["plain_ms"],
             "bound_ms": vol["bound_ms"],
             "bound_by": vol["bound_by"],
+            "bound_march_alone_ms": vol["bound_march_ms"],
+            "call_ms": vol["call_ms"],
             "library_ms": None,
         },
     ]}))

@@ -109,7 +109,7 @@ def _renders(grid, tf, model, view, proj, kw, cvol=None, sd=None):
                               scene_depth=sd, device="cpu")
     g = torch.as_tensor(grid)
     cv = None if cvol is None else torch.as_tensor(cvol)
-    rays = PV.ray_setup(g.shape, model, view, proj, ps, None, sd, device="cpu")
+    rays = PV.ray_setup(PV.ray_params(g.shape, model, view, proj, ps), None, sd, device="cpu")
     und = []
     qi, qd = CV.march_plain(g, torch.as_tensor(tf), cv, rays, W, H,
                             PV.march_params(g.shape, ps, cv is not None), undecided=und)
@@ -336,17 +336,25 @@ def test_splat_color_volume():
 
 
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("case", ["dvr_2iso", "color_volume", "clip_background", "iso_only"])
+@pytest.mark.parametrize("case", ["dvr_2iso", "color_volume", "clip_background", "iso_only",
+                                  "scene_depth", "scene_depth_45x37"])
 def test_kernel_matches_plain(cuda, case):
-    """csrc/volume.cu against march_plain on the card, on the same ray
-    table with jitter: rgba within 1e-5 (powf against torch.pow), depth
-    equal, at every pixel outside the undecided ones; one launch per
-    render_volume."""
-    grid = torch.as_tensor(_grid(32), device=cuda)
+    """csrc/volume.cu against its plain version (ray_setup + march_plain)
+    on the card, with the same jitter: the ray table it writes to
+    `rays_out` equal to ray_setup's word for word, rgba within 1e-5
+    (powf against torch.pow), depth equal, at every pixel outside the
+    undecided ones; one launch per render_volume. The scene-depth cases
+    clamp some rays' exit, the second at a frame of partial 8×4 tiles."""
+    w, h = (45, 37) if case == "scene_depth_45x37" else (W, H)
+    grid = torch.as_tensor(_grid(32 if w == W else 30), device=cuda)
     tf = torch.as_tensor(PCM.transfer_function("viridis", alpha_scale=0.6), device=cuda)
     model, view, proj = _camera()
-    cvol = None
+    cvol = sd = None
     kw = dict(CASES["dvr_2iso"])
+    if case.startswith("scene_depth"):
+        proj = Camera(eye=np.array([0.4, 0.5, 3.0]), center=np.zeros(3), up=np.array([0.0, 1, 0]),
+                      znear=0.1, zfar=10.0).proj_matrix(w, h)
+        sd = torch.as_tensor(_scene_depth(view, proj)[:h, :w], device=cuda).contiguous()
     if case == "color_volume":
         cvol = torch.as_tensor(np.random.RandomState(1).rand(16, 12, 20, 3).astype(np.float32),
                                device=cuda)
@@ -354,23 +362,30 @@ def test_kernel_matches_plain(cuda, case):
         kw = dict(CASES["background"], clip_min=(0.1, 0.0, 0.2), clip_max=(0.9, 0.8, 1.0))
     elif case == "iso_only":
         kw = dict(CASES["iso_only"])
-    s = PV.VolumeRenderSettings(width=W, height=H, **kw)
+    s = PV.VolumeRenderSettings(width=w, height=h, **kw)
     params = PV.march_params(grid.shape, s, cvol is not None)
-    jit = torch.rand(W * H, generator=torch.Generator(device=cuda).manual_seed(5), device=cuda)
-    rays = PV.ray_setup(grid.shape, model, view, proj, s, jit, device=cuda)
+    rp = PV.ray_params(grid.shape, model, view, proj, s)
+    jit = torch.rand(w * h, generator=torch.Generator(device=cuda).manual_seed(5), device=cuda)
+    table = torch.full((len(CV.RAY_FIELDS), w * h), float("nan"), device=cuda)
     before = CV.launches
-    img, dep = CV.march(grid, tf, cvol, rays, W, H, params)
+    img, dep = CV.render(grid, tf, cvol, rp, params, jit, sd, rays_out=table)
     torch.cuda.synchronize()
     assert CV.launches == before + 1
+    rays = PV.ray_setup(rp, jit, sd, device=cuda)
+    assert torch.equal(table.view(torch.int32), rays.view(torch.int32))
+    if sd is not None:  # the scene depth clamps the exit of some rays
+        t1 = CV.RAY_FIELDS.index("t1")
+        assert bool((rays[t1] < PV.ray_setup(rp, jit, None, device=cuda)[t1]).any())
     und = []
-    pimg, pdep = CV.march_plain(grid, tf, cvol, rays, W, H, params, undecided=und)
+    pimg, pdep = CV.march_plain(grid, tf, cvol, rays, w, h, params, undecided=und)
     dec = ~und[0]
     assert (img - pimg).abs().amax(-1)[dec].max().item() <= 1e-5
     assert torch.equal(torch.isinf(dep), torch.isinf(pdep))
     fin = torch.isfinite(dep) & dec
     assert torch.equal(dep[fin], pdep[fin])
     assert img[..., 3].sum().item() > 1.0
-    out, _ = PV.render_volume(grid, tf, model, view, proj, s, seed=2, color_volume=cvol, device=cuda)
+    out, _ = PV.render_volume(grid, tf, model, view, proj, s, seed=2, color_volume=cvol,
+                              scene_depth=sd, device=cuda)
     assert CV.launches == before + 2 and torch.isfinite(out).all()
 
 
@@ -378,17 +393,38 @@ def test_kernel_matches_plain(cuda, case):
 def test_kernel_wrapper_checks_inputs(cuda):
     grid = torch.zeros((8, 8, 8), device=cuda)
     tf = torch.zeros((16, 4), device=cuda)
+    eye = np.eye(4, dtype=np.float32)
     s = PV.VolumeRenderSettings(width=4, height=4, enable_iso=True, iso_values=(0.1,) * 9,
                                 iso_colors=((1, 1, 1, 1),) * 9)
+    rp = PV.ray_params(grid.shape, eye, eye, eye, s)
     params = PV.march_params(grid.shape, s, False)
-    rays = torch.zeros((len(CV.RAY_FIELDS), 16), device=cuda)
     with pytest.raises(ValueError, match="at most"):
-        CV.march(grid, tf, None, rays, 4, 4, params)
-    params = PV.march_params(grid.shape, PV.VolumeRenderSettings(width=4, height=4), False)
+        CV.render(grid, tf, None, rp, params)
+    s = PV.VolumeRenderSettings(width=4, height=4)
+    params = PV.march_params(grid.shape, s, False)
     with pytest.raises(TypeError):
-        CV.march(grid.double(), tf, None, rays, 4, 4, params)
+        CV.render(grid.double(), tf, None, rp, params)
     with pytest.raises(ValueError):
-        CV.march(grid, tf, None, rays[:, :8], 4, 4, params)
+        CV.render(grid, tf, None, rp, params, jitter=torch.zeros(8, device=cuda))
+    with pytest.raises(ValueError):
+        CV.render(grid, tf, None, rp, params, rays_out=torch.zeros((len(CV.RAY_FIELDS), 8),
+                                                                    device=cuda))
+    with pytest.raises(ValueError, match="nsteps"):
+        CV.render(grid, tf, None, rp._replace(nsteps=3), params)
+    with pytest.raises(ValueError):
+        CV.render(grid, tf, None, rp, params, scene_depth=torch.zeros((4, 5), device=cuda))
+    with pytest.raises(TypeError):
+        CV.render(grid, tf, None, rp, params, jitter=torch.zeros(16, device=cuda,
+                                                                 dtype=torch.float64))
+    with pytest.raises(ValueError, match="on cpu"):
+        CV.render(grid, tf.cpu(), None, rp, params)  # no CUDA launch on a CPU tensor
+    with pytest.raises(ValueError, match="colour volume"):
+        CV.render(grid, tf, None, rp, PV.march_params(grid.shape, s, True))
+    before = CV.launches
+    img, dep = CV.render(grid, tf, None, rp, params)  # a zero transfer function: an empty frame
+    torch.cuda.synchronize()
+    assert CV.launches == before + 1
+    assert torch.equal(img, torch.zeros_like(img)) and torch.isinf(dep).all()
 
 
 @pytest.mark.requires_cuda

@@ -1,13 +1,17 @@
-"""The volume ray-march: the CUDA kernel's wrapper and its plain PyTorch
+"""The volume frame: the CUDA kernel's wrapper and its plain PyTorch
 version.
 
-Counterpart of the march of viamd_tpu/render/volume.py (`_render_impl`'s
-`step` loop, :263-316, and the background compose, :318-320) — an XLA
-`fori_loop`, not a Pallas kernel. csrc/volume.cu replaces it: one thread per
-pixel walks its ray with the whole loop in registers.
+Counterpart of the ray setup and march of viamd_tpu/render/volume.py
+(`_render_impl`: the per-ray setup, :176-227, the `step` loop, :263-316,
+and the background compose, :318-320) — an XLA `fori_loop`, not a Pallas
+kernel. csrc/volume.cu replaces it: one launch builds every ray from the
+parameter block and marches it, the whole loop in registers.
 
-The per-ray setup (render/volume.py::ray_setup) is shared by both versions.
-It gives a (len(RAY_FIELDS), P) float32 table, one row per field:
+The parameter block is `RayParams` (the camera, the clip box, the frame
+size) and `MarchParams` (the march's scalars and isosurfaces): float32
+values built on the host by render/volume.py (`ray_params`,
+`march_params`). Its plain version is `ray_setup`, which gives a
+(len(RAY_FIELDS), P) float32 table, one row per field:
 
     ox oy oz   ray origin at NDC z = −1, texture space
     dx dy dz   ray direction (to the NDC z = 0 point), texture space
@@ -18,25 +22,27 @@ It gives a (len(RAY_FIELDS), P) float32 table, one row per field:
     jit        the ray's jitter in [0, 1) (0 without jitter)
     hit        1.0 where t1 > t0, else 0.0
 
-Step k of a ray (k = 0 … nsteps − 1) samples the grid at t = t0 + (k +
-jit)·dt and is live while hit, alpha < 0.995 and k·dt + t0 < t1. A live
-step first composites each isosurface the segment from the last sample
-crosses (k > 0, in iso order, shaded with the central-difference normal
-at the interpolated hit), then the transfer function's colour with its
-opacity corrected to the reference rate, 1 − max(1 − a, 1e-7)^(tex_dt·150);
-the depth is set at the first iso hit or where alpha first passes 0.5.
-Once a step is not live no later one is (alpha never falls, k·dt + t0
-never shrinks), so the kernel leaves the loop there and gets what the
-masked loop gets.
+then `march_plain`, which marches that table. Step k of a ray (k = 0 …
+nsteps − 1) samples the grid at t = t0 + (k + jit)·dt and is live while
+hit, alpha < 0.995 and k·dt + t0 < t1. A live step first composites each
+isosurface the segment from the last sample crosses (k > 0, in iso order,
+shaded with the central-difference normal at the interpolated hit), then
+the transfer function's colour with its opacity corrected to the reference
+rate, 1 − max(1 − a, 1e-7)^(tex_dt·150); the depth is set at the first iso
+hit or where alpha first passes 0.5. Once a step is not live no later one
+is (alpha never falls, k·dt + t0 never shrinks), so the kernel leaves the
+loop there and gets what the masked loop gets.
 
-`march` takes the plain version, `march_plain`, for CPU tensors only; for
-CUDA tensors it launches the kernel or raises. Both evaluate every
-expression in the same order with correctly rounded float32 operations
-(the library is built with -fmad=false; the plain version takes
-`sqrt_rn` and `div_rn`, since PyTorch's CPU sqrt is not
-correctly rounded and its CUDA division by a Python number multiplies by
-the reciprocal), so they agree up to the rounding of `powf` against
-`torch.pow`, and through it at undecided pixels
+`render` takes the plain version, `render_plain`, for CPU tensors only;
+for CUDA tensors it launches the kernel on the row-major volumes or
+raises. The kernel keeps no ray table in device memory; given `rays_out` it also writes the table
+it built, which equals `ray_setup`'s on the card word for word. Both
+versions evaluate every expression in the same order with correctly
+rounded float32 operations (the library is built with -fmad=false; the
+plain version takes `sqrt_rn` and `div_rn`, since PyTorch's CPU sqrt is
+not correctly rounded and its CUDA division by a Python number multiplies
+by the reciprocal), so the frames agree up to the rounding of `powf`
+against `torch.pow`, and through it at undecided pixels
 (`march_plain(undecided=...)`).
 """
 
@@ -45,6 +51,7 @@ from __future__ import annotations
 import ctypes
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from viamd_tpu_torch.cuda_build import build_info, check_tensor as _check, load_library
@@ -56,10 +63,14 @@ __all__ = [
     "MarchParams",
     "RAY_FIELDS",
     "REF_SAMPLING_RATE",
+    "RayParams",
     "launches",
     "load_kernel",
-    "march",
     "march_plain",
+    "ray_box",
+    "ray_setup",
+    "render",
+    "render_plain",
 ]
 
 EARLY_TERMINATION_ALPHA = 0.995  # raycaster.frag:51
@@ -110,6 +121,20 @@ class MarchParams(NamedTuple):
     iso_colors: tuple  # (n_iso,) of (r, g, b, a) f32
 
 
+class RayParams(NamedTuple):
+    """The rays' settings as the kernel takes them, float32 values
+    (render/volume.py::ray_params builds them)."""
+
+    width: int
+    height: int
+    nsteps: int
+    inv_vp: tuple  # (16,) row-major float32 inverse of proj @ view
+    inv_model: tuple  # (16,) row-major float32 inverse of the model matrix
+    view_z: tuple  # (4,) row 2 of the view matrix
+    clip_min: tuple  # (3,) the clip box, texture space
+    clip_max: tuple
+
+
 def _library():
     global _lib
     if _lib is None:
@@ -118,17 +143,17 @@ def _library():
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p, ctypes.c_int,
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ]
         lib.volume_launch.restype = ctypes.c_int
         lib.volume_max_iso.argtypes = []
         lib.volume_max_iso.restype = ctypes.c_int
         lib.volume_num_rays.argtypes = []
         lib.volume_num_rays.restype = ctypes.c_int
-        if lib.volume_max_iso() != MAX_ISO or lib.volume_num_rays() != len(RAY_FIELDS):
+        if (lib.volume_max_iso(), lib.volume_num_rays()) != (MAX_ISO, len(RAY_FIELDS)):
             raise RuntimeError("csrc/volume.cu and render/cuda_volume.py disagree")
         _lib = lib
     return _lib
@@ -199,52 +224,158 @@ def _sample_tf(tf: torch.Tensor, u: torch.Tensor) -> list:
     return [a[..., j] * g + b[..., j] * f for j in range(4)]
 
 
-# -- the march --------------------------------------------------------------------
+# -- the ray setup (render/volume.py re-exports it) ------------------------------
 
 
-def march(grid, tf, cvol, rays, width: int, height: int, params: MarchParams):
-    """March every ray of the (len(RAY_FIELDS), P = height·width) table →
-    ((height, width, 4) rgba, (height, width) depth, +inf where nothing
-    was hit): the kernel on CUDA, the plain version on the CPU. `cvol`: a
-    (D0', D1', D2', 3) colour volume when params.use_cvol, else None."""
+def _apply44(m, x, y, z):
+    """Homogeneous transform of points (x, y, z, 1) by the float32 4x4 m
+    (16 values, row-major), written out elementwise as the JAX package
+    does, with its guard of the perspective divide (|w'| < 1e-12 → ±1e-12:
+    an inf coordinate would turn into NaN in a later affine transform) →
+    (x', y', z')."""
+    out = [x * m[4 * r] + y * m[4 * r + 1] + z * m[4 * r + 2] + m[4 * r + 3] for r in range(4)]
+    ww = out[3]
+    tiny = torch.where(ww < 0, torch.full_like(ww, -1e-12), torch.full_like(ww, 1e-12))
+    ww = torch.where(ww.abs() < 1e-12, tiny, ww)
+    return out[0] / ww, out[1] / ww, out[2] / ww
+
+
+def _per_axis(v) -> list:
+    """A box bound (a number or three) as three float32 values."""
+    return [float(x) for x in np.broadcast_to(np.asarray(v, np.float32), (3,))]
+
+
+def ray_box(orig: torch.Tensor, direc: torch.Tensor, lo=0.0, hi=1.0):
+    """Entry and exit parameters of rays (P, 3) against the box [lo, hi]³
+    (lo, hi scalars or per-axis (3,)): the entry/exit rasterization of
+    volumerender_utils in closed form. → (tmin clamped at 0, tmax); a ray
+    misses where tmax ≤ tmin. The bounds stay scalars of the ops (no
+    tensor is made from host data)."""
+    lo3, hi3 = _per_axis(lo), _per_axis(hi)
+    tmin = tmax = None
+    for a in range(3):
+        o, d = orig[:, a], direc[:, a]
+        d = torch.where(d.abs() < 1e-12, torch.full_like(d, 1e-12), d)
+        inv = 1.0 / d
+        t1 = (lo3[a] - o) * inv
+        t2 = (hi3[a] - o) * inv
+        near, far = torch.minimum(t1, t2), torch.maximum(t1, t2)
+        tmin = near if tmin is None else torch.maximum(tmin, near)
+        tmax = far if tmax is None else torch.minimum(tmax, far)
+    return torch.clamp_min(tmin, 0.0), tmax
+
+
+def ray_setup(rays: RayParams, jitter: torch.Tensor | None = None, scene_depth=None, *,
+              device) -> torch.Tensor:
+    """The ray table (len(RAY_FIELDS), H·W) of the whole frame, row-major
+    from image row 0 (NDC y = −1): the plain version of the kernel's setup.
+    `jitter`: (H·W,) values in [0, 1), or None for none; `scene_depth`:
+    (H, W) linear view depth of the opaque scene (+inf where empty)."""
+    dev = torch.device(device)
+    W, H = rays.width, rays.height
+    P = W * H
+    px = div_rn(torch.arange(W, dtype=torch.float32, device=dev) + 0.5, W) * 2.0 - 1.0
+    py = div_rn(torch.arange(H, dtype=torch.float32, device=dev) + 0.5, H) * 2.0 - 1.0
+    gx = px[None, :].expand(H, W).reshape(-1)
+    gy = py[:, None].expand(H, W).reshape(-1)
+
+    p_near = _apply44(rays.inv_vp, gx, gy, torch.full_like(gx, -1.0))
+    # a second point on the ray at NDC mid-depth: the far-plane
+    # unprojection degenerates (w' → 0), and only the direction matters
+    p_far = _apply44(rays.inv_vp, gx, gy, torch.zeros_like(gx))
+    o = torch.stack(_apply44(rays.inv_model, *p_near), dim=1)
+    e = torch.stack(_apply44(rays.inv_model, *p_far), dim=1)
+    d = e - o
+    t0, t1 = ray_box(o, d, rays.clip_min, rays.clip_max)
+    if scene_depth is not None:
+        # the exit clamped where the ray passes the opaque scene
+        # (entryexit.frag:28,61-68): view depth is affine in t, so solve
+        # zd(t) = zd_scene for t
+        v2 = rays.view_z
+
+        def vdepth(p):  # world point → view depth −z_view, no divide
+            return -(p[0] * v2[0] + p[1] * v2[1] + p[2] * v2[2] + v2[3])
+
+        zd0 = vdepth(p_near)
+        zdb = vdepth(p_far) - zd0
+        zdb = torch.where(zdb.abs() < 1e-12, torch.full_like(zdb, 1e-12), zdb)
+        zs = torch.as_tensor(scene_depth, dtype=torch.float32, device=dev).reshape(-1)
+        t_scene = (zs - zd0) / zdb
+        t1 = torch.minimum(t1, torch.where(torch.isfinite(zs), t_scene, t1))
+    hit = t1 > t0
+    dt = torch.where(hit, div_rn(t1 - t0, float(rays.nsteps)), torch.zeros_like(t0))
+    dnorm = sqrt_rn(d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2])
+    tex_dt = dt * dnorm
+    vn = torch.clamp_min(dnorm, 1e-12)
+    jit = torch.zeros_like(t0) if jitter is None else jitter.to(torch.float32).reshape(P)
+    rows = [o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2], t0, t1, dt,
+            tex_dt, -d[:, 0] / vn, -d[:, 1] / vn, -d[:, 2] / vn, jit, hit.to(torch.float32)]
+    return torch.stack(rows)
+
+
+# -- the frame ---------------------------------------------------------------------
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def render(grid, tf, cvol, rays: RayParams, march: MarchParams, jitter=None,
+           scene_depth=None, rays_out=None):
+    """The volume frame → ((height, width, 4) rgba, (height, width) depth,
+    +inf where nothing was hit): on CUDA one launch of the kernel, on the
+    CPU the plain version. `grid`: (D0, D1, D2); `cvol`: a (D0', D1', D2',
+    3) colour volume when march.use_cvol, else None; `jitter`: (P,) or
+    None; `scene_depth`: (height, width) or None; `rays_out`: None, or a
+    (len(RAY_FIELDS), P) float32 tensor that receives the ray table.
+    Raises on what the kernel does not take, or if the launch fails."""
     global launches
     dev = grid.device
     if dev.type == "cpu":
-        return march_plain(grid, tf, cvol, rays, width, height, params)
+        return render_plain(grid, tf, cvol, rays, march, jitter, scene_depth, rays_out)
     if dev.type != "cuda":
         raise ValueError(f"no volume route for device {dev}")
-    n_iso = len(params.iso_values)
-    if n_iso > MAX_ISO:
-        raise ValueError(f"{n_iso} isosurfaces: the kernel takes at most {MAX_ISO}")
-    P = width * height
-    _check(grid, "grid", torch.float32, grid.shape, dev)
     if grid.ndim != 3:
         raise ValueError(f"grid: shape {tuple(grid.shape)}, expected (D0, D1, D2)")
+    n_iso = len(march.iso_values)
+    if n_iso > MAX_ISO:
+        raise ValueError(f"{n_iso} isosurfaces: the kernel takes at most {MAX_ISO}")
+    if march.nsteps != rays.nsteps:
+        raise ValueError(f"nsteps: {march.nsteps} in the march, {rays.nsteps} in the rays")
+    W, H = rays.width, rays.height
+    P = W * H
+    _check(grid, "grid", torch.float32, grid.shape, dev)
     _check(tf, "tf", torch.float32, (tf.shape[0], 4), dev)
-    _check(rays, "rays", torch.float32, (len(RAY_FIELDS), P), dev)
-    if params.use_cvol:
+    if march.use_cvol:
         if cvol is None or cvol.ndim != 4:
             raise ValueError("use_cvol needs a (D0, D1, D2, 3) colour volume")
         _check(cvol, "cvol", torch.float32, (*cvol.shape[:3], 3), dev)
         cdims, cptr = tuple(cvol.shape[:3]), cvol.data_ptr()
     else:
         cdims, cptr = (1, 1, 1), None
+    if jitter is not None:
+        _check(jitter, "jitter", torch.float32, (P,), dev)
+    if scene_depth is not None:
+        _check(scene_depth, "scene_depth", torch.float32, (H, W), dev)
+    if rays_out is not None:
+        _check(rays_out, "rays_out", torch.float32, (len(RAY_FIELDS), P), dev)
     lib = _library()
-    rgba = torch.empty((height, width, 4), dtype=torch.float32, device=dev)
-    depth = torch.empty((height, width), dtype=torch.float32, device=dev)
-    scal = (
-        params.vmin, params.vspan, params.lx, params.ly, params.lz,
-        params.ambient, params.one_m_amb, params.specular, params.shininess,
-        params.h, params.bg_r, params.bg_g, params.bg_b, params.bg_a,
-    )
-    fs = (ctypes.c_float * len(scal))(*scal)
-    iso = [v for i in range(n_iso) for v in (params.iso_values[i], *params.iso_colors[i])]
-    isos = (ctypes.c_float * max(len(iso), 1))(*iso)
+    rgba = torch.empty((H, W, 4), dtype=torch.float32, device=dev)
+    depth = torch.empty((H, W), dtype=torch.float32, device=dev)
+    m = march
+    scal = (m.vmin, m.vspan, m.lx, m.ly, m.lz, m.ambient, m.one_m_amb, m.specular,
+            m.shininess, m.h, m.bg_r, m.bg_g, m.bg_b, m.bg_a)
+    cam = (*rays.inv_vp, *rays.inv_model, *rays.view_z, *rays.clip_min, *rays.clip_max)
+    iso = [v for i in range(n_iso) for v in (m.iso_values[i], *m.iso_colors[i])]
+
+    def floats(vals):
+        return ctypes.cast((ctypes.c_float * max(len(vals), 1))(*vals), ctypes.c_void_p)
+
     err = lib.volume_launch(
         grid.data_ptr(), *grid.shape, tf.data_ptr(), tf.shape[0], cptr, *cdims,
-        rays.data_ptr(), P, params.nsteps, int(params.enable_dvr),
-        int(params.use_cvol), n_iso, ctypes.cast(fs, ctypes.c_void_p),
-        ctypes.cast(isos, ctypes.c_void_p), rgba.data_ptr(), depth.data_ptr(),
+        _ptr(jitter), _ptr(scene_depth), W, H, rays.nsteps, int(m.enable_dvr),
+        int(m.use_cvol), n_iso, floats(scal), floats(cam), floats(iso),
+        rgba.data_ptr(), depth.data_ptr(), _ptr(rays_out),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
@@ -253,10 +384,21 @@ def march(grid, tf, cvol, rays, width: int, height: int, params: MarchParams):
     return rgba, depth
 
 
+def render_plain(grid, tf, cvol, rays: RayParams, march: MarchParams, jitter=None,
+                 scene_depth=None, rays_out=None):
+    """The plain version of the kernel: `ray_setup` then `march_plain`,
+    with `render`'s arguments and result."""
+    table = ray_setup(rays, jitter, scene_depth, device=grid.device)
+    if rays_out is not None:
+        rays_out.copy_(table)
+    return march_plain(grid, tf, cvol, table, rays.width, rays.height, march)
+
+
 def march_plain(grid, tf, cvol, rays, width: int, height: int, params: MarchParams,
                 undecided=None, work=None):
-    """The plain PyTorch version of csrc/volume.cu: JAX's masked loop, all
-    rays one step at a time, in the kernel's order of operations.
+    """The plain PyTorch version of csrc/volume.cu's march over the ray
+    table of `ray_setup`: JAX's masked loop, all rays one step at a time,
+    in the kernel's order of operations.
 
     `undecided`, a list, receives the (height, width) bool map of pixels
     where a float rounding could flip a decision (see UNDECIDED_*).
