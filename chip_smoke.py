@@ -120,7 +120,24 @@ line each (phase 16 several):
    volume (splat_color_volume), a clip sub-box with a background, and isos
    only; TAAReprojector over the render path's frames 0–15 with Halton
    jitter, the resolve timed; and the small volume + postprocess chain on
-   CUDA against the CPU.
+   CUDA against the CPU;
+17. `[cartoon]`: the protein views at full width — a bundle of 16
+   polyala_helix(64) chains on a 4×4 lattice 12 Å apart (7,168 atoms, 1,024
+   backbone residues), 16 frames jittered from a numpy seed, 1920×1080
+   under compute_optimal_view: every stage's ms a frame (current_ss_weights
+   on the device, the SS colouring, ribbon_mesh on the host, the view
+   transform and binning, csrc/triangles.cu, the tube through raster.cu,
+   the depth composite) over three runs, launch counts set to 0 before and
+   read after; the triangle kernel against its plain version on frame 0
+   over the whole frame (0 mismatching rgba, depth and pick pixels), its
+   device time, registers and spills, plain time and bound; 4,096 sampled
+   pixels against a brute-force cast over every triangle; the tiles over
+   JAX's 64-slot cap and the sampled pixels such a cap gets wrong; the
+   ribbons mode once; an overlay frame over the cartoon;
+18. `[rama]`: the backbone analyses — the Ramachandran component over the
+   bundle × 1,000 frames on the card (compute_angles, density), frames
+   0–7 against the CPU, and the shape-space component over the 16 chains
+   in frames/s.
 
 Ends with a JSON line of kernel results, the `nvidia-smi` name/power-limit
 line, and the JSON status line. Any failure raises (non-zero exit).
@@ -138,6 +155,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
+from types import SimpleNamespace
 from unittest import mock
 
 import numpy as np
@@ -187,6 +205,25 @@ from viamd_tpu_torch.render.volume import (
     render_volume,
 )
 from viamd_tpu_torch.script import compile_script
+from viamd_tpu_torch.app.events import EventBus
+from viamd_tpu_torch.components import RamachandranComponent, ShapespaceComponent
+from viamd_tpu_torch.components.ramachandran import ACC_RES
+from viamd_tpu_torch.core.system import build_system
+from viamd_tpu_torch.core.system import postprocess as core_postprocess
+from viamd_tpu_torch.io.trajectory import InMemoryTrajectory
+from viamd_tpu_torch.render import cuda_triangles
+from viamd_tpu_torch.render import triangles as tri_mod
+from viamd_tpu_torch.render.backbone_rep import backbone_tube, current_ss_weights
+from viamd_tpu_torch.render.color import color_atoms_secondary_structure
+from viamd_tpu_torch.render.overlay import OverlayQueue
+from viamd_tpu_torch.render.ribbon_mesh import ribbon_mesh
+from viamd_tpu_torch.render.triangles import (
+    bin_triangles,
+    pixel_rays,
+    raster_triangles,
+    raster_triangles_plain,
+    view_transform,
+)
 
 HEADLINE = (
     "r = rdf(element('O'), element('O'), 10.0);\n"
@@ -300,6 +337,19 @@ OPS_VSTEP, OPS_VDVR, OPS_VISO, OPS_VCROSS, OPS_VRAY = 61, 35, 4, 351, 25
 # negations and 3 divisions (17). With a scene depth, two view depths
 # (2 × 7), their difference, guard (2), t_scene (2), isfinite, the min (21)
 OPS_VSETUP, OPS_VSCENE = 180, 21
+# phases 17-18: the protein views and the backbone analyses. The bundle: 16
+# polyala_helix(64) chains on a 4x4 lattice 12 Å apart (7,168 atoms), 16
+# frames jittered by 0.08 Å (σ, as polyala_helix jitters) for the views,
+# 1,000 for the analyses; 4,096 sampled pixels against the brute force.
+BUNDLE_SIDE, BUNDLE_RES, BUNDLE_SPACING, BUNDLE_SIGMA = 4, 64, 12.0, 0.08
+CARTOON_FRAMES, RAMA_FRAMES, RAMA_CPU_FRAMES, CARTOON_SAMPLES = 16, 1_000, 8, 4_096
+JAX_TRI_CAP = 64  # viamd_tpu/render/triangles.py's max_per_tile
+# csrc/triangles.cu's float32 operations: per (pixel, candidate) test,
+# d × e2 (9), det (5), |det| test (2), 1/det (1), u (6), v (6), t (1), the
+# hit tests (6); per staged candidate, e1 e2 (6), −v0 (3), qvec (9), tnum
+# (5), the normal, its length and division (9 + 7 + 3); per pixel, the ray
+# (10); per hit pixel, the flip (6) and the shading (54)
+OPS_TRI_TEST, OPS_TRI_STAGE, OPS_TRI_RAY, OPS_TRI_SHADE = 36, 42, 10, 60
 
 
 def host_ms(fn, reps: int = 20, queued: bool = False) -> float:
@@ -1767,6 +1817,375 @@ def volume_phase(dev, sys_, compiled, res, traj, scene_in) -> dict:
     return dict(main, launches=launches, render_ms=runs)
 
 
+def helix_bundle(n_side: int = BUNDLE_SIDE, n_res: int = BUNDLE_RES,
+                 spacing: float = BUNDLE_SPACING):
+    """The protein views' scene: n_side² copies of polyala_helix(n_res)'s
+    ideal helix on a square lattice `spacing` Å apart in x and y, one chain
+    each, through build_system + postprocess (bonds, one backbone range a
+    chain), aperiodic → (System, (n, 3) float32 ideal coordinates)."""
+    one, _ = datagen.polyala_helix(n_res, n_frames=1)
+    base = one.coords()
+    k = one.natoms
+    offsets = [(i * spacing, j * spacing, 0.0) for i in range(n_side) for j in range(n_side)]
+    coords = np.concatenate([base + np.asarray(o, np.float32) for o in offsets])
+    n_ch = len(offsets)
+    sys_ = core_postprocess(build_system(
+        coords=coords,
+        atom_names=[one.atom_names[i] for i in one.atom_name_id] * n_ch,
+        res_names=["ALA"] * (k * n_ch),
+        res_ids=np.tile(np.asarray(one.res_id)[one.atom_res_idx], n_ch),
+        chain_ids=[f"C{c}" for c in range(n_ch) for _ in range(k)],
+        elements_z=np.tile(one.element, n_ch),
+        cell=UnitCell.none(),
+    ))
+    return sys_, coords.astype(np.float32)
+
+
+CARTOON_STAGES = ("ss", "colour", "mesh", "bin", "kernel", "tube_mesh", "tube", "composite")
+
+
+def cartoon_frame(sys_, x, view, proj, width: int, height: int, dev, times=None) -> dict:
+    """One frame of the protein views, stage by stage as a Session would run
+    a cartoon rep and a tube rep (viamd_tpu/app/session.py:655-760):
+    current_ss_weights on the device; the secondary-structure colouring
+    (host); ribbon_mesh, cartoon (host); the mesh to the device, its view
+    transform and binning; the triangle kernel; the tube (backbone_tube on
+    the host, render_molecules through raster.cu, picks mapped to CA
+    atoms; the host's spline and the device's render as two stages); the
+    depth composite. With `times`, adds each stage's seconds
+    (host clock, a synchronize at each stage's end)."""
+    p = np.asarray(proj, np.float32)
+    p00, p11 = float(p[0, 0]), float(p[1, 1])
+    t = time.perf_counter()
+
+    def lap(name):
+        nonlocal t
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        if times is not None:
+            times[name] += now - t
+        t = now
+
+    ss = current_ss_weights(sys_, x, device=dev)
+    ss_np = ss.cpu().numpy()
+    lap("ss")
+    cols = color_atoms_secondary_structure(sys_, ss_np)
+    lap("colour")
+    tris, src = ribbon_mesh(sys_, x, ss_weights=ss_np, cartoon=True)
+    lap("mesh")
+    tv = view_transform(tris, view, device=dev)
+    col_t = torch.as_tensor(cols[src], device=dev)
+    src_t = torch.as_tensor(src, device=dev)
+    start, lst = bin_triangles(tv, p00, p11, width, height)
+    lap("bin")
+    img, dep, pick = raster_triangles(tv, col_t, src_t, start, lst, width, height, p00, p11)
+    lap("kernel")
+    pts, radii, tsrc = backbone_tube(sys_, x, ss_weights=ss_np, radius=0.35)
+    lap("tube_mesh")
+    t_img, t_dep, t_pick = render_molecules(
+        pts, radii, cols[tsrc], view, proj, RasterSettings(width=width, height=height),
+        device=dev,
+    )
+    tsrc_t = torch.as_tensor(tsrc, device=dev)
+    t_pick = torch.where(t_pick >= 0, tsrc_t[t_pick.clamp_min(0).long()], torch.full_like(t_pick, -1))
+    lap("tube")
+    closer = t_dep < dep
+    img = torch.where(closer[..., None], t_img, img)
+    pick = torch.where(closer, t_pick, pick)
+    dep = torch.minimum(dep, t_dep)
+    lap("composite")
+    return dict(img=img, depth=dep, pick=pick, ss=ss_np, n_tris=int(tris.shape[0]),
+                args=(tv, col_t, src_t, start, lst, width, height, p00, p11))
+
+
+def brute_tri_pick(tv, src_t, ys, xs, width: int, height: int, p00: float, p11: float,
+                   cand=None, chunk: int = 256) -> torch.Tensor:
+    """Pick of pixels (ys, xs) from a cast over EVERY triangle of tv (or,
+    with `cand` (P, k) ids and -1 padding, over each pixel's own
+    candidates), in the plain version's float32 arithmetic (triangles.
+    ray_test): the nearest hit, ties to the triangle first in the lists'
+    order (ascending near depth, then triangle id)."""
+    near = (-tv[..., 2]).clamp_min(1e-2).amin(1)
+    rank = torch.empty_like(near, dtype=torch.long)
+    rank[tri_mod._depth_order(near)] = torch.arange(near.shape[0], device=near.device)
+    terms = tri_mod.triangle_terms(tv)
+    out = []
+    for b in range(0, ys.shape[0], chunk):
+        y, x = ys[b : b + chunk], xs[b : b + chunk]
+        dx, dy = pixel_rays(x, y, width, height, p00, p11)
+        d = (dx[:, None], dy[:, None], torch.full_like(dx[:, None], -1.0))
+        if cand is None:
+            ids = torch.arange(near.shape[0], device=near.device)[None, :]
+            valid = torch.ones_like(ids, dtype=torch.bool)
+        else:
+            ids = cand[b : b + chunk].clamp_min(0)
+            valid = cand[b : b + chunk] >= 0
+        at = {k: (tuple(c[ids] for c in v) if isinstance(v, tuple) else v[ids])
+              for k, v in terms.items()}
+        t, ok = tri_mod.ray_test(at, d)
+        ok = ok & valid
+        tt = torch.where(ok, t, torch.full_like(t, float("inf")))
+        tmin = tt.amin(1, keepdim=True)
+        key = torch.where(ok & (tt == tmin), rank[ids].expand_as(tt), torch.full_like(tt, 2**62, dtype=torch.long))
+        tid = ids.expand_as(tt).gather(1, key.argmin(1, keepdim=True))[:, 0]
+        out.append(torch.where(torch.isfinite(tmin[:, 0]), src_t[tid].int(), torch.full_like(tid, -1).int()))
+    return torch.cat(out)
+
+
+def tri_bound(args, hits: int) -> dict:
+    """The triangle kernel's work on one frame's lists, and its bound: tests
+    = list entries × 256 (every pixel of a tile against every candidate of
+    its list); operations = tests × OPS_TRI_TEST + entries × OPS_TRI_STAGE
+    + W·H × OPS_TRI_RAY + hits × OPS_TRI_SHADE over 67 TFLOP/s; bytes =
+    triangles (36 + 16 + 4 a triangle) + lists + outputs (24 a pixel) over
+    3.35 TB/s; the larger of the two."""
+    tv, col_t, src_t, start, lst, W, H = args[:7]
+    T, entries = tv.shape[0], lst.numel()
+    tests = entries * cuda_triangles.TILE**2
+    ops = tests * OPS_TRI_TEST + entries * OPS_TRI_STAGE + W * H * OPS_TRI_RAY + hits * OPS_TRI_SHADE
+    nbytes = T * (36 + 16 + 4) + (entries + start.numel()) * 4 + W * H * 24
+    b_ms, b_by = bound(ops, nbytes)
+    return dict(tests=tests, entries=entries, ops=ops, nbytes=nbytes, bound_ms=b_ms, bound_by=b_by)
+
+
+def cartoon_phase(dev, smi: str, n_side: int = BUNDLE_SIDE, n_res: int = BUNDLE_RES,
+                  n_frames: int = CARTOON_FRAMES, width: int = WIDTH, height: int = HEIGHT,
+                  samples: int = CARTOON_SAMPLES) -> dict:
+    """[cartoon] (phase 17): the protein views at full width. The bundle of
+    helix_bundle, n_frames frames jittered from a numpy seed, under
+    compute_optimal_view at width × height: every stage's ms a frame
+    (cartoon_frame) over three runs with the launch counts set to 0 before
+    and read after; the triangle kernel against its plain version on frame
+    0 over the whole frame (rgba, depth, pick: 0 mismatches), its device
+    time behind a queued sleep and by events, registers and spills, the
+    plain time and the bound (tri_bound); sampled pixels against a
+    brute-force cast over every triangle; the tiles over JAX's 64-slot cap
+    and the sampled pixels a 64-cap would get wrong (informational); the
+    ribbons mode once; an overlay frame over the cartoon (a box, a distance
+    line and label, an angle arc, a filled triangle, a text label)."""
+    t0 = time.perf_counter()
+    sys_, base = helix_bundle(n_side, n_res)
+    rng = np.random.RandomState(SEED)
+    frames = (base[None] + rng.normal(scale=BUNDLE_SIGMA, size=(n_frames, *base.shape))).astype(np.float32)
+    cam = compute_optimal_view(base.min(0), base.max(0))
+    view, proj = cam.view_matrix(), cam.proj_matrix(width, height)
+    cartoon_frame(sys_, frames[0], view, proj, width, height, dev)  # warm-up
+    runs = []
+    cuda_triangles.launches = cuda_raster.launches = 0
+    for _ in range(3):
+        times = dict.fromkeys(CARTOON_STAGES, 0.0)
+        for f in range(n_frames):
+            out = cartoon_frame(sys_, frames[f], view, proj, width, height, dev, times)
+        runs.append({k: v * 1e3 / n_frames for k, v in times.items()})
+    tri_launches, tube_launches = cuda_triangles.launches, cuda_raster.launches  # just after
+    if tri_launches != 3 * n_frames or tube_launches != 3 * n_frames:
+        raise AssertionError(f"cartoon path: {tri_launches} triangle and {tube_launches} "
+                             f"raster launches for {3 * n_frames} frames")
+    img, dep, pick = out["img"], out["depth"], out["pick"]
+    if not (img.shape == (height, width, 4) and bool(torch.isfinite(img).all())
+            and int((pick >= 0).sum()) > 0.02 * width * height):
+        raise AssertionError(("cartoon frame", tuple(img.shape), int((pick >= 0).sum())))
+    per_frame = {k: statistics.median(r[k] for r in runs) for k in CARTOON_STAGES}
+    phase("cartoon", t0, (
+        f"{sys_.natoms} atoms, {sys_.backbone.count} backbone residues in "
+        f"{len(sys_.backbone.ranges)} ranges, {out['n_tris']} cartoon triangles, "
+        f"{width}x{height}, frames 0-{n_frames - 1}, three runs; ms a frame (median "
+        f"of the runs): " + ", ".join(f"{k} {v:.3f}" for k, v in per_frame.items())
+        + f"; sum {sum(per_frame.values()):.3f} (runs "
+        + " / ".join(f"{sum(r.values()):.3f}" for r in runs)
+        + f"); launches: triangles {tri_launches}, raster {tube_launches}; {smi}"
+    ))
+
+    # frame 0: the kernel against its plain version over the whole frame
+    t0 = time.perf_counter()
+    f0 = cartoon_frame(sys_, frames[0], view, proj, width, height, dev)
+    args = f0["args"]
+    got = raster_triangles(*args)
+    want = raster_triangles_plain(*args, tri_mod.LIGHT, True)
+    torch.cuda.synchronize()
+    mism = {name: int(((g != w).reshape(height, width, -1)).any(-1).sum())
+            for name, g, w in zip(("rgba", "depth", "pick"), got, want)}
+    if any(mism.values()):
+        raise AssertionError(f"triangle kernel differs from its plain version: {mism}")
+    hits = int((want[2] >= 0).sum())
+    cnt = (args[3][1:] - args[3][:-1])
+    bnd = tri_bound(args, hits)
+    ms_k = cuda_ms(lambda: raster_triangles(*args), queued=True)
+    ms_call = cuda_ms(lambda: raster_triangles(*args))
+    ms_plain = cuda_ms(lambda: raster_triangles_plain(*args, tri_mod.LIGHT, True), reps=3, warmup=1)
+    ptxas = [ln.strip() for ln in cuda_build.build_info["triangles"]["log"].splitlines()
+             if "registers" in ln or "spill" in ln]
+    # sampled pixels against the brute force over every triangle, and what
+    # JAX's 64-slot cap would have given them
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    kpick = got[2]
+    hit_px = torch.nonzero(kpick >= 0).cpu()
+    half = samples // 2
+    sel = hit_px[torch.randperm(hit_px.shape[0], generator=gen)[:half]]
+    rnd = torch.stack([torch.randint(0, height, (samples - sel.shape[0],), generator=gen),
+                       torch.randint(0, width, (samples - sel.shape[0],), generator=gen)], 1)
+    yx = torch.cat([sel, rnd]).to(kpick.device)
+    ys, xs = yx[:, 0], yx[:, 1]
+    tv, src_t, start, lst = args[0], args[2], args[3], args[4]
+    brute = brute_tri_pick(tv, src_t, ys, xs, width, height, args[7], args[8])
+    wrong = int((kpick[ys, xs] != brute).sum())
+    if wrong:
+        raise AssertionError(f"{wrong} of {samples} sampled pixels disagree with the brute force")
+    tiles_x = -(-width // cuda_triangles.TILE)
+    tile = (ys // cuda_triangles.TILE) * tiles_x + xs // cuda_triangles.TILE
+    slot = torch.arange(JAX_TRI_CAP, device=ys.device)
+    n_cand = cnt[tile].clamp(max=JAX_TRI_CAP)
+    pos = (start[tile][:, None] + slot[None, :]).clamp(max=max(lst.numel() - 1, 0))
+    cand = torch.where(slot[None, :] < n_cand[:, None], lst[pos].long(), torch.full_like(pos, -1).long())
+    capped = brute_tri_pick(tv, src_t, ys, xs, width, height, args[7], args[8], cand=cand)
+    cap_wrong = int((capped != brute).sum())
+    over_cap = int((cnt > JAX_TRI_CAP).sum())
+    # the ribbons mode once
+    tris_r, src_r = ribbon_mesh(sys_, frames[0], ss_weights=f0["ss"], cartoon=False)
+    tv_r = view_transform(tris_r, view, device=dev)
+    cols_r = torch.as_tensor(color_atoms_secondary_structure(sys_, f0["ss"])[src_r], device=dev)
+    start_r, lst_r = bin_triangles(tv_r, args[7], args[8], width, height)
+    args_r = (tv_r, cols_r, torch.as_tensor(src_r, device=dev), start_r, lst_r, *args[5:])
+    got_r = raster_triangles(*args_r)
+    want_r = raster_triangles_plain(*args_r, tri_mod.LIGHT, True)
+    torch.cuda.synchronize()
+    if not all(torch.equal(g, w) for g, w in zip(got_r, want_r)):
+        raise AssertionError("ribbons: the triangle kernel differs from its plain version")
+    phase("cartoon-kernel", t0, (
+        f"triangles.cu on frame 0, {width}x{height}: {args[0].shape[0]} triangles, "
+        f"{bnd['entries']} tile entries over {int((cnt > 0).sum())} covered tiles (mean "
+        f"{bnd['entries'] / max(int((cnt > 0).sum()), 1):.1f}, max {int(cnt.max())}), "
+        f"{bnd['tests']} ray tests; against the plain version mismatching pixels rgba "
+        f"{mism['rgba']}, depth {mism['depth']}, pick {mism['pick']} ({hits} hit); "
+        f"kernel {ms_k:.4f} ms (device, queued; events around the call {ms_call:.4f} ms), "
+        f"plain {ms_plain:.4f} ms, plain/kernel {ms_plain / ms_k:.1f}x; bound "
+        f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}; {bnd['ops']:.6g} operations, "
+        f"{bnd['nbytes']} bytes), kernel at {bnd['bound_ms'] / ms_k * 100:.1f}% of the "
+        f"bound; ptxas: {' | '.join(ptxas)}; {samples} sampled pixels against a brute "
+        f"force over all {args[0].shape[0]} triangles: {wrong} wrong; tiles over JAX's "
+        f"{JAX_TRI_CAP}-slot cap {over_cap}, sampled pixels a {JAX_TRI_CAP}-cap gets "
+        f"wrong {cap_wrong}; ribbons mode {tris_r.shape[0]} triangles, kernel = plain"
+    ))
+
+    # an overlay frame over the cartoon
+    t0 = time.perf_counter()
+    label_id, fill_id, x0 = 900_001, 900_002, frames[0]
+    ca = sys_.backbone.atom_ca
+    a, b, c = (x0[ca[i]].astype(np.float64) for i in (0, n_res // 2, n_res + n_res // 4))
+    lo, hi = base.min(0).astype(np.float64), base.max(0).astype(np.float64)
+    eye_dir = np.asarray(cam.eye, np.float64) - np.asarray(cam.center, np.float64)
+    eye_dir /= np.linalg.norm(eye_dir)
+    front = 0.5 * (lo + hi) + eye_dir * 0.6 * np.linalg.norm(hi - lo)
+    up = np.cross(eye_dir, [0.0, 1.0, 0.0])
+
+    def overlay():
+        q = OverlayQueue()
+        q.add_box(np.diag(hi - lo), origin=lo)
+        q.add_line(a, b)
+        q.add_text((a + b) * 0.5, f"{np.linalg.norm(b - a):.2f} Å")
+        q.add_angle_arc(b, a, c)
+        # opaque, so that it writes its depth and wins the composite
+        q.add_triangle(front - up * 3, front + up * 3, front + [0.0, 4.0, 0.0],
+                       (0.9, 0.4, 0.1, 1.0), pick_id=fill_id)
+        q.add_text(front + [0.0, 6.0, 0.0], "bundle", pick_id=label_id)
+        o_img, o_dep, o_pick = q.render(view, proj, width, height, device=dev)
+        closer = o_dep < f0["depth"]
+        return (torch.where(closer[..., None], o_img, f0["img"]),
+                torch.where(closer, o_pick, f0["pick"]))
+
+    ov_img, ov_pick = overlay()
+    torch.cuda.synchronize()
+    n_label, n_fill = int((ov_pick == label_id).sum()), int((ov_pick == fill_id).sum())
+    if not (n_label > 0 and n_fill > 0 and bool(torch.isfinite(ov_img).all())):
+        raise AssertionError(f"overlay: label pixels {n_label}, fill pixels {n_fill}")
+    ov_ms = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        overlay()
+        torch.cuda.synchronize()
+        ov_ms.append((time.perf_counter() - t1) * 1e3)
+    phase("cartoon-overlay", t0, (
+        f"box + distance line and label + angle arc + fill + label over the cartoon "
+        f"frame: ms {' / '.join(f'{v:.3f}' for v in ov_ms)}; label pixels {n_label}, "
+        f"fill pixels {n_fill}"
+    ))
+    return dict(launches=tri_launches, max_abs_err=0.0, ms=ms_k, plain_ms=ms_plain,
+                bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"], call_ms=ms_call)
+
+
+def rama_phase(dev, n_side: int = BUNDLE_SIDE, n_res: int = BUNDLE_RES,
+               n_frames: int = RAMA_FRAMES, n_cpu: int = RAMA_CPU_FRAMES) -> None:
+    """[rama] (phase 18): the backbone analyses over the bundle × n_frames
+    frames on the card (a DeviceTrajectory, frames jittered by a seeded
+    torch generator there): the Ramachandran component's compute_angles and
+    density (ACC_RES² with blur) in ms, three runs each; frames 0 to
+    n_cpu − 1 against the port on the CPU (angles within 1e-4 rad, the
+    tests' dihedral tolerance; shape weights within 1e-3, as `[default]`
+    holds them: the float32 closed-form eigen solve of a 96 Å mass-weighted
+    rod rounds its small eigenvalues apart on the two devices); the
+    shape-space component over the chains as structures in frames/s, three
+    runs."""
+    t0 = time.perf_counter()
+    sys_, base = helix_bundle(n_side, n_res)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    base_t = torch.as_tensor(base, device=dev)
+    stack = torch.randn((n_frames, *base.shape), generator=gen, device=dev)
+    stack.mul_(BUNDLE_SIGMA).add_(base_t)
+    cells = np.zeros((n_frames, 3, 3), np.float32)
+
+    def session(traj):
+        return SimpleNamespace(system=sys_, trajectory=traj, events=EventBus(), tasks=None,
+                               stored_selections={})
+
+    sess = session(DeviceTrajectory(stack, cells))
+    cpu_sess = session(InMemoryTrajectory(stack[:n_cpu].cpu().numpy(), cells[:n_cpu]))
+    rama = RamachandranComponent(sess, device=dev)
+
+    def timed(fn):
+        fn()
+        torch.cuda.synchronize()
+        out = []
+        for _ in range(3):
+            t1 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t1) * 1e3)
+        return out
+
+    ms_angles = timed(rama.compute_angles)
+    ms_density = timed(lambda: rama.density("general"))
+    dens = rama.density("general")
+    phi, psi = rama.angles()
+    cphi, cpsi = RamachandranComponent(cpu_sess, device="cpu").compute_angles()
+
+    def wrapped(a, b):
+        d = (a[:n_cpu].cpu().double() - b.double()).abs()
+        return float(torch.minimum(d, 2 * np.pi - d).max())
+
+    err = max(wrapped(phi, cphi), wrapped(psi, cpsi))
+    if not (err <= 1e-4 and phi.shape == (n_frames, sys_.backbone.count)
+            and abs(float(dens.sum()) - 1.0) < 1e-4 and bool(torch.isfinite(dens).all())):
+        raise AssertionError(f"rama: angles vs the CPU {err}, density sum {float(dens.sum())}")
+    shape = ShapespaceComponent(sess, device=dev)
+    ms_shape = timed(lambda: shape.evaluate("chains()"))
+    res = shape.evaluate("chains()")
+    want = ShapespaceComponent(cpu_sess, device="cpu").evaluate("chains()")
+    shape_err = float(np.abs(res[:n_cpu] - want).max())
+    if not (res.shape == (n_frames, n_side * n_side, 3) and np.isfinite(res).all()
+            and shape_err <= 1e-3):
+        raise AssertionError(f"shape space: {res.shape}, vs the CPU {shape_err}")
+    phase("rama", t0, (
+        f"{sys_.natoms} atoms x {n_frames} frames on the device "
+        f"({stack.numel() * 4 / 1e6:.1f} MB), {sys_.backbone.count} backbone residues: "
+        f"compute_angles ms {' / '.join(f'{v:.3f}' for v in ms_angles)}; density "
+        f"({ACC_RES}², blur) ms {' / '.join(f'{v:.3f}' for v in ms_density)}; frames "
+        f"0-{n_cpu - 1} vs the CPU: max angle diff {err:.3g} rad; shape space "
+        f"({res.shape[1]} chains) frames/s "
+        f"{' / '.join(f'{n_frames / (v / 1e3):.1f}' for v in ms_shape)}, vs the CPU max "
+        f"diff {shape_err:.3g}"
+    ))
+
+
 def main() -> None:
     # -- 1. device ---------------------------------------------------------
     t0 = time.perf_counter()
@@ -1785,9 +2204,10 @@ def main() -> None:
 
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    cuda_build.build(dict([cuda_rdf.LIBRARY, cuda_raster.LIBRARY, cuda_volume.LIBRARY]))
+    cuda_build.build(dict([cuda_rdf.LIBRARY, cuda_raster.LIBRARY, cuda_volume.LIBRARY,
+                           cuda_triangles.LIBRARY]))
     lines = []
-    for mod in (cuda_rdf, cuda_raster, cuda_volume):
+    for mod in (cuda_rdf, cuda_raster, cuda_volume, cuda_triangles):
         secs = mod.load_kernel()
         name = mod.LIBRARY[0]
         ptxas = [
@@ -2146,6 +2566,10 @@ def main() -> None:
     # -- 16. the volume view
     vol = volume_phase(dev, sys_, compiled, res, traj, scene_in)
 
+    # -- 17.-18. the protein views, the backbone analyses
+    cartoon = cartoon_phase(dev, smi)
+    rama_phase(dev)
+
     print(json.dumps({"kernels": [
         {
             "name": "pair_hist",
@@ -2214,6 +2638,20 @@ def main() -> None:
             "bound_by": vol["bound_by"],
             "bound_march_alone_ms": vol["bound_march_ms"],
             "call_ms": vol["call_ms"],
+            "library_ms": None,
+        },
+        {
+            "name": "triangles",
+            "route": "cuda",
+            "source": "viamd_tpu_torch/csrc/triangles.cu",
+            "replaces": "viamd_tpu/render/triangles.py:30",
+            "launches": cartoon["launches"],
+            "max_abs_err": cartoon["max_abs_err"],
+            "ms": cartoon["ms"],
+            "plain_ms": cartoon["plain_ms"],
+            "bound_ms": cartoon["bound_ms"],
+            "bound_by": cartoon["bound_by"],
+            "call_ms": cartoon["call_ms"],
             "library_ms": None,
         },
     ]}))

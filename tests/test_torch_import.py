@@ -14,6 +14,9 @@ names = [m.name for m in pkgutil.walk_packages(
     viamd_tpu_torch.__path__, "viamd_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+# the Ramachandran reference tables come from the port's own copy
+from viamd_tpu_torch.components.ramachandran import reference_density
+assert reference_density("glycine").shape == (180, 180)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "viamd_tpu" or m.startswith("viamd_tpu."))
@@ -25,7 +28,11 @@ for mod in ("ops.cuda_rdf", "render.camera", "render.color", "render.cuda_raster
             "native", "eval.engine", "io.trajectory", "io.loader", "io.xtc", "io.trr",
             "io.dcd", "io.cache", "io.gro", "io.pdb", "io.xyz", "io.mmcif", "io.lammps",
             "io.edr", "io.xvg", "io.csv", "render.volume", "render.cuda_volume",
-            "render.colormap", "render.bokeh", "render.taa", "ops.histogram"):
+            "render.colormap", "render.bokeh", "render.taa", "ops.histogram",
+            "app.events", "app.tasks", "ops.backbone", "render.backbone_rep",
+            "render.ribbon_mesh", "render.triangles", "render.cuda_triangles",
+            "render.font", "render.overlay", "components", "components.ramachandran",
+            "components.shapespace"):
     assert "viamd_tpu_torch." + mod in names, (mod, names)
 assert not bad, bad
 """

@@ -256,3 +256,20 @@ class DeviceTrajectory(Trajectory):
         """(coords (n, 3), basis (3, 3)) views on the device."""
         i = int(idx)
         return self.stack[i], self.cells[i]
+
+
+def frames_on(traj: Trajectory, indices: Sequence[int], device) -> tuple[torch.Tensor, torch.Tensor]:
+    """Frames `indices` of `traj` as (F, n, 3) and (F, 3, 3) float32 tensors
+    on `device`: a DeviceTrajectory on that device is indexed where it
+    lies, any other trajectory is loaded on the host and copied over."""
+    dev = torch.device(device)
+    if isinstance(traj, DeviceTrajectory) and traj.device.type == dev.type and (
+        dev.index is None or traj.device.index == dev.index
+    ):
+        sel = torch.as_tensor(np.asarray(indices, np.int64), device=traj.device)
+        return traj.stack[sel], traj.cells[sel]
+    coords, cells = traj.load_frames(indices)
+    return (
+        torch.as_tensor(np.asarray(coords, np.float32), device=dev),
+        torch.as_tensor(np.asarray(cells, np.float32), device=dev),
+    )
