@@ -14,8 +14,9 @@ render configuration (bench.py): the box's frames at 1920×1080, eye at box
 centre + (0, 0, 1.6·box), perspective(45°, 16/9, 1, 500), CPK colours, in
 spacefill and in licorice (133,336 bond half-capsules) — through
 render.raster.render_molecules → render.postprocess.execute (HBAO, ACES,
-compose, FXAA 3.11). Then the volume view (phase 16). Phases, one result
-line each (phase 16 several):
+compose, FXAA 3.11). Then the volume view (phase 16), the protein views
+(17–18), the VeloxChem and SDF windows (19–20). Phases, one result line
+each (several for 16–20):
 
 1. the device (fails without CUDA; nothing falls back to the CPU);
 2. the build of the hand-written CUDA kernels from csrc/ (one nvcc per
@@ -137,7 +138,29 @@ line each (phase 16 several):
 18. `[rama]`: the backbone analyses — the Ramachandran component over the
    bundle × 1,000 frames on the card (compute_angles, density), frames
    0–7 against the CPU, and the shape-space component over the 16 chains
-   in frames/s.
+   in frames/s;
+19. `[qm]`: the VeloxChem window at a real size — polyala_helix(8) frame 0
+   (56 atoms, in Bohr) in 6-31G (392 cartesian functions, 944 primitives),
+   seeded synthetic MO coefficients (a QR's Q), 140 occupied orbitals, one
+   synthetic excited state, through components.VeloxchemComponent: the
+   Export window's OBB grids at "mid" and "high", HOMO and the electron
+   density each (ms by events and host clock, Φ builds, peak memory, the
+   bound and the grid's share of it, export_volume to .mhd/.raw/.xyz
+   under `.chip_scratch/`, removed); orbital_grid at 128³ and
+   render_orbital at 1920×1080 through volume.cu; the 64³ density's
+   topology (critical points, edges, the numpy host time) and
+   render_topology through raster.cu; the excited state's transition
+   density, NTO pair and charge transfer by grid and by Mulliken, two
+   grid runs bit-equal; 8,192 sampled voxels of the "high" grid and the
+   attribution on the card against the CPU;
+20. `[density-volume]`: the SDF window over the headline result (`v`, 64
+   reference structures) through components.DensityVolumeComponent:
+   render_composite at 1920×1080 stage by stage, launch counts set to 0
+   before and read after; render alone with a blur, with a clip sub-box
+   and two isos, and at 512²; sdf_vis by name after a checkpoint round
+   trip; the component on a small box against the CPU at 160×120; the
+   dataset component's summary of the box and remap_element on the small
+   box on both devices.
 
 Ends with a JSON line of kernel results, the `nvidia-smi` name/power-limit
 line, and the JSON status line. Any failure raises (non-zero exit).
@@ -169,6 +192,7 @@ from viamd_tpu_torch.io import load_file
 from viamd_tpu_torch.io.trajectory import DeviceTrajectory
 from viamd_tpu_torch.io.xtc import write_xtc
 from viamd_tpu_torch.io.xvg import read_xvg, write_xvg
+from viamd_tpu_torch.core.elements import vdw_radius
 from viamd_tpu_torch.core.unitcell import UnitCell
 from viamd_tpu_torch.ops import cuda_rdf, density
 from viamd_tpu_torch.ops import sdf as sdf_ops
@@ -224,6 +248,15 @@ from viamd_tpu_torch.render.triangles import (
     raster_triangles_plain,
     view_transform,
 )
+from viamd_tpu_torch.components import (
+    DatasetComponent,
+    DensityVolumeComponent,
+    VeloxchemComponent,
+)
+from viamd_tpu_torch.io.vlx import BOHR_PER_ANGSTROM, ExcitedStates, QMData, shells_from_label
+from viamd_tpu_torch.ops import gto
+from viamd_tpu_torch.ops.topo import bond_graph, critical_points
+from viamd_tpu_torch.render import volume as vol_mod
 
 HEADLINE = (
     "r = rdf(element('O'), element('O'), 10.0);\n"
@@ -350,6 +383,35 @@ JAX_TRI_CAP = 64  # viamd_tpu/render/triangles.py's max_per_tile
 # (5), the normal, its length and division (9 + 7 + 3); per pixel, the ray
 # (10); per hit pixel, the flip (6) and the shading (54)
 OPS_TRI_TEST, OPS_TRI_STAGE, OPS_TRI_RAY, OPS_TRI_SHADE = 36, 42, 10, 60
+# [qm] (phase 19): polyala_helix(8) frame 0 in 6-31G (56 atoms, 392
+# cartesian functions, 944 primitives, 140 occupied orbitals) with seeded
+# synthetic MO coefficients and one synthetic excited state; the Export
+# window's "mid" and "high" presets (veloxchem.py:127-133), the orbital
+# grid at 128³, the topology and excited-state grids at 64³; 8,192 sampled
+# voxels of the "high" grid against the CPU within QM_RTOL of their largest
+# |value| (CUDA's expf and cuBLAS's sum order against the CPU's), grid
+# charges within QM_CHARGE_RTOL (the same winners and fixed-point sums)
+QM_RES, QM_PRESETS, QM_ORBITAL_DIMS, QM_TOPO_DIMS, QM_SAMPLES = 8, ("mid", "high"), 128, 64, 8_192
+QM_RTOL, QM_CHARGE_RTOL = 1e-5, 1e-6
+# f32 operations of one primitive evaluation (ops/gto.py::primitive_matrix),
+# the exp counted as one: d (3), r² (5), α·r² (1), the cutoff test (1),
+# −α·r² (1), exp (1), the product of the three powers (2), ang · rad (1);
+# each power beyond the first adds a multiply (counted from the basis).
+# The contraction: 2 per (point, primitive, column); the density adds ψ²,
+# · occ and the sum (3 per point and column)
+OPS_GTO_PRIM, OPS_RHO_COL = 15, 3
+# [density-volume] (phase 20): the headline's SDF at full width with its 64
+# reference structures; render alone with a blur, with a clip sub-box and
+# two isos, at 512²; the CUDA-vs-CPU check at 160x120 on a 2,000-water box
+DV_STRUCTURES, DV_CHECK_WATERS, DV_CHECK_WH = 64, 2_000, (160, 120)
+DV_SCRIPT = "v = sdf(residue(1:64), element('H'), 5.0);"
+# the check's references: the card's float32 Kabsch rounds the reference
+# frames apart from the CPU's (the last bits of the rotations and of the
+# translations, ~30 Å), which moves an atom's depth past TIE_RTOL at a few
+# silhouette pixels and its shading by ~1e-4 (on an H100: the 4x4 frames
+# 1.14e-5 apart, 20 of 19,200 pixels off, rgba 1.6e-4); the frames are
+# held relative to their largest entry
+DV_FRAME_RTOL, DV_REF_SHARE, DV_REF_RGBA = 2e-6, 0.005, 1e-3
 
 
 def host_ms(fn, reps: int = 20, queued: bool = False) -> float:
@@ -2186,6 +2248,437 @@ def rama_phase(dev, n_side: int = BUNDLE_SIDE, n_res: int = BUNDLE_RES,
     ))
 
 
+def qm_molecule(n_res: int = QM_RES, seed: int = SEED):
+    """[qm]'s molecule: polyala_helix(n_res) frame 0 in Bohr with the
+    6-31G basis, seeded synthetic MO coefficients (the Q of a Gaussian
+    matrix's QR), occupations 2.0 for the ΣZ/2 lowest, and one synthetic
+    excited state (a normalized Gaussian occ×virt amplitude matrix) →
+    (System, QMData)."""
+    sys_, traj = datagen.polyala_helix(n_res, n_frames=1, seed=0)
+    x = traj.load_frames([0])[0][0].astype(np.float64) * BOHR_PER_ANGSTROM
+    shells = shells_from_label("6-31G", x, sys_.element)
+    nb = sum((s.angular + 1) * (s.angular + 2) // 2 for s in shells)
+    rng = np.random.RandomState(seed)
+    C = np.linalg.qr(rng.standard_normal((nb, nb)))[0].astype(np.float32)
+    n_occ = int(sys_.element.sum()) // 2
+    occ = np.zeros(nb, np.float32)
+    occ[:n_occ] = 2.0
+    T = rng.standard_normal((n_occ, nb - n_occ))
+    T /= np.linalg.norm(T)
+    exc = ExcitedStates(energies_ev=np.array([4.2]), oscillator_strengths=np.array([0.31]),
+                        rotatory_strengths=np.array([-1.7]),
+                        transition_dms=T[None].astype(np.float32))
+    qm = QMData.from_arrays(x, sys_.element, shells, C, mo_occupations=occ,
+                            mo_energies=np.linspace(-20.0, 2.0, nb), excited=exc,
+                            basis_label="6-31G")
+    return sys_, qm
+
+
+def device_and_host_ms(fn):
+    """(fn's result, ms from CUDA events around the call, ms on the host
+    clock to a synchronize after it)."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t1 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end), (time.perf_counter() - t1) * 1e3
+
+
+def gto_bound(P: int, lmn: np.ndarray, M: int, density: bool) -> tuple:
+    """(ms, bound_by, ops, bytes) of one grid: P points against the
+    basis's primitives (their power multiplies counted from lmn) and M
+    coefficient columns; the grid written once, the inputs read once."""
+    K = lmn.shape[0]
+    ops = P * (K * OPS_GTO_PRIM + int(np.maximum(lmn - 1, 0).sum())) + 2 * P * K * M
+    if density:
+        ops += OPS_RHO_COL * P * M
+    nbytes = P * 4 + K * (3 * 4 + 4 + 3 * 4 + M * 4)
+    return (*bound(ops, nbytes), ops, nbytes)
+
+
+def qm_phase(dev, n_res: int = QM_RES, presets=QM_PRESETS, orbital_dims: int = QM_ORBITAL_DIMS,
+             topo_dims: int = QM_TOPO_DIMS, width: int = WIDTH, height: int = HEIGHT,
+             samples: int = QM_SAMPLES) -> dict:
+    """[qm] (phase 19): the VeloxChem window (the module docstring lists its
+    parts). → the export grids' figures."""
+    t0 = time.perf_counter()
+    sys_, qm = qm_molecule(n_res)
+    sess = SimpleNamespace(system=sys_, events=EventBus(), coord_override=None)
+    vlx = VeloxchemComponent(sess, device=dev)
+    vlx.load(qm)
+    homo = qm.n_occupied - 1
+    centers, exps, lmn, _, _ = qm._expand()
+    phis = [0]
+    real_phi = gto.primitive_matrix
+
+    def counted(*a, **k):
+        phis[0] += 1
+        return real_phi(*a, **k)
+
+    phase("qm", t0, (
+        f"polyala_helix({n_res}) frame 0, {sys_.natoms} atoms, 6-31G: {len(qm.shells)} shells, "
+        f"{qm.mo_coeffs.shape[0]} cartesian functions, {centers.shape[0]} primitives, "
+        f"{qm.n_occupied} occupied orbitals (synthetic coefficients on a real basis, geometry "
+        f"and grid size); torch.backends.cuda.matmul.allow_tf32 = "
+        f"{torch.backends.cuda.matmul.allow_tf32}"
+    ))
+    SCRATCH.mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="qm-", dir=SCRATCH))
+    grids = {}
+    try:
+        for preset in presets:
+            spa = vlx.RESOLUTION_SAMPLES_PER_ANG[preset]
+            R, lo, voxel, dims = vlx.obb_geometry(spa)
+            dims_t = tuple(int(d) for d in dims)
+            P = int(np.prod(dims))
+            geo = dict(origin=lo, voxel=voxel, dims=dims_t, orientation=R, device=dev)
+            cf = qm.primitives_for_orbital(homo)[2]
+            C_all = qm.primitives_all()[2]
+            occ = np.asarray(qm.mo_occupations, np.float32)
+            for source, fn, M in (
+                ("mo", lambda: gto.eval_gto_grid(centers, exps, cf, lmn, **geo), 1),
+                ("electron_density", lambda: gto.density_grid(centers, exps, C_all, lmn,
+                                                              occupations=occ, **geo),
+                 int((occ != 0).sum())),
+            ):
+                fn()  # warm-up
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                runs = []
+                for _ in range(2):
+                    phis[0] = 0
+                    with mock.patch.object(gto, "primitive_matrix", counted):
+                        g, ms_dev, ms_host = device_and_host_ms(fn)
+                    runs.append((ms_dev, ms_host))
+                builds = phis[0]
+                peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+                if not (g.shape == dims_t and bool(torch.isfinite(g).all())
+                        and float(g.abs().max()) > 0):
+                    raise AssertionError(f"qm {preset} {source} grid {tuple(g.shape)}")
+                if builds != -(-P // gto.CHUNK):
+                    raise AssertionError(f"qm {preset} {source}: {builds} Φ builds")
+                t1 = time.perf_counter()
+                files = vlx.export_volume(str(work / f"{preset}-{source}.mhd"), source=source,
+                                          fmt="mhd", resolution=preset)
+                ms_export = (time.perf_counter() - t1) * 1e3
+                hdr = Path(files[0]).read_text()
+                raw = np.fromfile(files[1], np.float32)
+                if not (f"DimSize = {dims[0]} {dims[1]} {dims[2]}" in hdr and raw.size == P
+                        and np.isfinite(raw).all()):
+                    raise AssertionError(f"qm export {preset} {source}")
+                b_ms, b_by, ops, nbytes = gto_bound(P, lmn, M, source != "mo")
+                best = min(r[0] for r in runs)
+                grids[(preset, source)] = dict(ms=best, bound_ms=b_ms, bound_by=b_by, dims=dims_t,
+                                               builds=builds, peak_mib=peak)
+                phase("qm", t0, (
+                    f"export grid {preset} {dims_t} ({P} points) {source}: {M} column(s); ms "
+                    f"(events / host) " + " | ".join(f"{a:.2f} / {b:.2f}" for a, b in runs)
+                    + f"; Φ builds (chunks of {gto.CHUNK}) {builds}; peak mem +{peak:.1f} MiB; "
+                    f"bound {b_ms:.3f} ms ({b_by}; {ops:.6g} operations, {nbytes} bytes), grid at "
+                    f"{b_ms / best * 100:.1f}% of it; export_volume (grid, copy, .mhd/.raw/.xyz) "
+                    f"{ms_export:.1f} ms, {raw.nbytes / 2**20:.1f} MiB written"
+                ))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    # the orbital window: the grid, then the ray-march through volume.cu
+    (grid, _, _), ms_grid, host_grid = device_and_host_ms(
+        lambda: vlx.orbital_grid(homo, dims=orbital_dims))
+    stage = {}
+    real_rv = vol_mod.render_volume
+
+    def timed_rv(*a, **k):
+        out, stage["ev"], stage["host"] = device_and_host_ms(lambda: real_rv(*a, **k))
+        return out
+
+    vlx.render_orbital(homo, dims=orbital_dims, width=width, height=height)  # warm-up
+    cuda_volume.launches = 0
+    with mock.patch.object(vol_mod, "render_volume", timed_rv):
+        (img, depth), _, ms_total = device_and_host_ms(
+            lambda: vlx.render_orbital(homo, dims=orbital_dims, width=width, height=height))
+    vol_launches = cuda_volume.launches
+    if vol_launches != 1 or not (bool(torch.isfinite(img).all()) and float(img[..., 3].max()) > 0):
+        raise AssertionError(f"render_orbital: {vol_launches} volume launches")
+    phase("qm", t0, (
+        f"orbital_grid(HOMO {homo}, {orbital_dims}³) ms (events / host) {ms_grid:.2f} / "
+        f"{host_grid:.2f}; render_orbital {width}x{height} (iso only) host {ms_total:.2f} ms, of "
+        f"it render_volume {stage['ev']:.2f} ms (events) / {stage['host']:.2f} ms (host); volume "
+        f"launches {vol_launches}; {float((img[..., 3] > 0.01).double().mean()) * 100:.1f}% of "
+        f"pixels covered"
+    ))
+
+    # density topology: grid on the card, critical points and graph on the host
+    (rho, origin, vox), ms_rho, host_rho = device_and_host_ms(lambda: vlx.density_grid(topo_dims))
+    (pts, edges), _, ms_topo = device_and_host_ms(lambda: vlx.topology(topo_dims))
+    rho_np = rho.cpu().numpy()
+    t1 = time.perf_counter()
+    cps = critical_points(rho_np, origin, vox, min_value=1e-3)
+    bond_graph(cps, rho_np, origin, vox, threshold_frac=0.5)
+    ms_host_topo = (time.perf_counter() - t1) * 1e3
+    vlx.render_topology(topo_dims, width, height, points=pts, edges=edges)  # warm-up
+    cuda_raster.launches = 0
+    (timg, _, tpick), _, ms_render_topo = device_and_host_ms(
+        lambda: vlx.render_topology(topo_dims, width, height, points=pts, edges=edges))
+    raster_launches = cuda_raster.launches
+    kinds = {k: sum(p.kind == k for p in pts) for k in ("max", "bond", "ring", "min")}
+    if not (kinds["max"] > 0 and raster_launches == 1 and bool(torch.isfinite(timg).all())
+            and int((tpick >= 0).sum()) > 0 and int(tpick.max()) < len(pts)):
+        raise AssertionError(f"topology: {kinds}, raster launches {raster_launches}")
+    phase("qm", t0, (
+        f"topology of density_grid({topo_dims}³): {len(pts)} critical points {kinds}, "
+        f"{len(edges)} edges; density_grid ms (events / host) {ms_rho:.2f} / {host_rho:.2f}; "
+        f"topology() host {ms_topo:.1f} ms, of it critical_points + bond_graph (numpy) "
+        f"{ms_host_topo:.1f} ms; render_topology {width}x{height} host {ms_render_topo:.2f} ms, "
+        f"raster launches {raster_launches}, {int((tpick >= 0).sum())} pixels picked"
+    ))
+
+    # the excited state
+    groups = sys_.atom_res_idx
+    out = {}
+    for name, fn in (
+        ("transition_density_grid", lambda: vlx.transition_density_grid(0, topo_dims)),
+        ("nto_grid", lambda: vlx.nto_grid(0, 0, topo_dims)),
+        ("attachment_detachment_grids", lambda: vlx.attachment_detachment_grids(0, topo_dims)),
+        ("charge_transfer grid", lambda: vlx.charge_transfer(0, groups, topo_dims, "grid")),
+        ("charge_transfer grid again", lambda: vlx.charge_transfer(0, groups, topo_dims, "grid")),
+        ("charge_transfer mulliken", lambda: vlx.charge_transfer(0, groups, method="mulliken")),
+    ):
+        out[name] = device_and_host_ms(fn)
+    ct1, ct2 = out["charge_transfer grid"][0], out["charge_transfer grid again"][0]
+    for k in ("hole_per_atom", "part_per_atom", "matrix"):
+        if not np.array_equal(ct1[k], ct2[k]):
+            raise AssertionError(f"charge_transfer grid {k} differs between two CUDA runs")
+    ctm = out["charge_transfer mulliken"][0]
+    for ct in (ct1, ctm):
+        if not (np.isfinite(ct["matrix"]).all() and ct["hole_charges"].sum() > 0
+                and ct["part_charges"].sum() > 0):
+            raise AssertionError("charge_transfer output")
+    hole_g = ct1["hole_charges"] / ct1["hole_charges"].sum()
+    hole_m = ctm["hole_charges"] / ctm["hole_charges"].sum()
+    phase("qm", t0, (
+        "excited state 0, " + f"{topo_dims}³: " + "; ".join(
+            f"{k} ms (events / host) {v[1]:.2f} / {v[2]:.2f}" for k, v in out.items())
+        + f"; grid charges of two CUDA runs bit-equal; hole shares by residue, grid "
+        + " ".join(f"{v:.3f}" for v in hole_g) + ", Mulliken "
+        + " ".join(f"{v:.3f}" for v in hole_m)
+    ))
+
+    # checks against the CPU: sampled voxels of the "high" grid, attribution
+    R, lo, voxel, dims = vlx.obb_geometry(vlx.RESOLUTION_SAMPLES_PER_ANG[presets[-1]])
+    pts_dev = gto.grid_points(lo, voxel, dims, R, device=dev)
+    pick = np.random.RandomState(SEED).choice(pts_dev.shape[0], samples, replace=False)
+    sample = pts_dev[torch.as_tensor(pick, device=dev)]
+    cf = qm.primitives_for_orbital(homo)[2]
+    c_occ = qm.primitives_all()[2][:, : qm.n_occupied]
+    errs = {}
+    for name, coeffs, rho_of in (("HOMO", cf, False), ("density", c_occ, True)):
+        vals = {}
+        for d, p in ((dev, sample), ("cpu", sample.cpu())):
+            v = gto.eval_gto(p, centers, exps, coeffs, lmn, device=d)
+            vals[str(d)] = (2.0 * v * v).sum(1) if rho_of else v
+        got, want = vals[str(dev)].cpu().double(), vals["cpu"].double()
+        errs[name] = float((got - want).abs().max() / want.abs().max())
+        if not errs[name] <= QM_RTOL:
+            raise AssertionError(f"eval_gto {name} CUDA vs CPU: {errs[name]:.3g} of the largest")
+    det, att, origin, vox = vlx.attachment_detachment_grids(0, topo_dims)
+    radii = vdw_radius(np.asarray(qm.atom_numbers)) * BOHR_PER_ANGSTROM
+    win_equal, q_err = True, 0.0
+    for g in (det, att):
+        w_gpu = gto.grid_winners(g.shape, origin, vox, qm.atom_coords, radii, device=dev)
+        w_cpu = gto.grid_winners(g.shape, origin, vox, qm.atom_coords, radii, device="cpu")
+        win_equal &= bool(torch.equal(w_gpu.cpu(), w_cpu))
+        q_gpu = gto.attribute_grid_to_atoms(g, origin, vox, qm.atom_coords, radii, device=dev)
+        q_cpu = gto.attribute_grid_to_atoms(g.cpu(), origin, vox, qm.atom_coords, radii,
+                                            device="cpu")
+        q_err = max(q_err, float((q_gpu.cpu().double() - q_cpu.double()).abs().max()
+                                 / q_cpu.double().abs().max()))
+    if not (win_equal and q_err <= QM_CHARGE_RTOL):
+        raise AssertionError(f"attribution CUDA vs CPU: winners equal {win_equal}, charges {q_err}")
+    phase("qm", t0, (
+        f"eval_gto on {samples} sampled voxels of the {presets[-1]} grid, CUDA vs CPU: HOMO "
+        f"{errs['HOMO']:.3g}, {qm.n_occupied}-orbital density {errs['density']:.3g} of the "
+        f"largest |value| (tolerance {QM_RTOL:g}); attribute_grid_to_atoms on the {topo_dims}³ "
+        f"attachment/detachment grids: winners equal {win_equal}, charges {q_err:.3g} relative "
+        f"(tolerance {QM_CHARGE_RTOL:g})"
+    ))
+    return grids
+
+
+def density_volume_phase(dev, sys_, compiled, res, traj, width: int = WIDTH,
+                         height: int = HEIGHT, small: int = VOL_SMALL,
+                         check_waters: int = DV_CHECK_WATERS, check_wh=DV_CHECK_WH) -> None:
+    """[density-volume] (phase 20): the SDF window over the headline result
+    (the module docstring lists its parts)."""
+    t0 = time.perf_counter()
+    frame0 = traj.load_frame(0)[0]
+
+    def session(res_, system=sys_, trajectory=traj, compiled_=compiled, coords=frame0):
+        return SimpleNamespace(system=system, trajectory=trajectory, compiled=compiled_,
+                               eval_result=res_, events=EventBus(),
+                               current_coords=lambda: coords)
+
+    dv = DensityVolumeComponent(session(res), device=dev)
+    rec = dv.sdf_vis("v")
+    dv.render_composite("v", 0, width, height, max_structures=DV_STRUCTURES)  # warm-up
+    times = {}
+    (_, times["reference_frames"], _) = device_and_host_ms(lambda: dv.reference_frames("v", 0))
+    ((ref_img, ref_depth), _, times["render_references"]) = device_and_host_ms(
+        lambda: dv.render_references("v", 0, width, height, max_structures=DV_STRUCTURES))
+    (_, _, times["render"]) = device_and_host_ms(
+        lambda: dv.render("v", width, height, scene_depth=ref_depth))
+    cuda_raster.launches = cuda_volume.launches = 0
+    (comp, _, times["render_composite"]) = device_and_host_ms(
+        lambda: dv.render_composite("v", 0, width, height, max_structures=DV_STRUCTURES))
+    launches = dict(raster=cuda_raster.launches, volume=cuda_volume.launches)
+    if launches != dict(raster=1, volume=1):
+        raise AssertionError(f"render_composite launches {launches}, expected one of each")
+    hit = float(torch.isfinite(ref_depth).double().mean())
+    seen = float((comp[..., 3] > 0.01).double().mean())
+    if not (comp.shape == (height, width, 4) and bool(torch.isfinite(comp).all())
+            and hit > 0.001 and seen > hit):
+        raise AssertionError(f"render_composite: {hit} of pixels on an atom, {seen} covered")
+    phase("density-volume", t0, (
+        f"render_composite {width}x{height}, {len(rec['structures'][:DV_STRUCTURES])} reference "
+        f"structures: host ms " + ", ".join(
+            f"{k} {v:.2f}" for k, v in times.items() if k != "reference_frames")
+        + f" (reference_frames {times['reference_frames']:.2f} ms, events); launches "
+        f"{launches}; {hit * 100:.2f}% of pixels on an atom, {seen * 100:.2f}% covered"
+    ))
+    # render alone: a blur, a clip sub-box with two isos, 512²
+    alone = {}
+    cuda_volume.launches = 0
+    dv.blur_sigma = 1.0
+    (_, _, alone["blur 1.0"]) = device_and_host_ms(lambda: dv.render("v", width, height))
+    dv.blur_sigma = 0.0
+    dv.clip_min, dv.clip_max = (0.2, 0.0, 0.3), (0.9, 0.7, 1.0)
+    dv.set_isosurfaces(SDF_ISO_FRACTIONS)
+    ((cimg, _), _, alone["clip + 2 isos"]) = device_and_host_ms(lambda: dv.render("v", width, height))
+    dv.clip_min, dv.clip_max = (0.0,) * 3, (1.0,) * 3
+    dv.set_isosurfaces(())
+    ((simg, _), _, alone[f"{small}²"]) = device_and_host_ms(lambda: dv.render("v", small, small))
+    if cuda_volume.launches != 3 or not (bool(torch.isfinite(cimg).all())
+                                         and float(simg[..., 3].sum()) > 0):
+        raise AssertionError(f"render alone: {cuda_volume.launches} volume launches")
+    # the vis.sdf payload after a checkpoint round trip (by name)
+    SCRATCH.mkdir(exist_ok=True)
+    path = SCRATCH / "density-volume.npz"
+    try:
+        save_checkpoint(res, str(path))
+        loaded = load_checkpoint(str(path))
+    finally:
+        path.unlink(missing_ok=True)
+    dv2 = DensityVolumeComponent(session(loaded), device=dev)
+    rec2 = dv2.sdf_vis("v")
+    same = (rec2["extent"] == rec["extent"] and len(rec2["structures"]) == len(rec["structures"])
+            and all(np.array_equal(a, b) for a, b in zip(rec2["structures"], rec["structures"]))
+            and all(np.array_equal(np.asarray(rec2[k]), np.asarray(rec[k]))
+                    for k in ("struct_idx", "struct_w", "ref_centered")))
+    equal_render = bool(torch.equal(dv2.render("v", small, small)[0], simg))
+    if loaded.property("v").spec.vis is not None or not (same and equal_render):
+        raise AssertionError(f"sdf_vis after a checkpoint: payload equal {same}, render equal "
+                             f"{equal_render}")
+    phase("density-volume", t0, (
+        "render alone, host ms: " + ", ".join(f"{k} {v:.2f}" for k, v in alone.items())
+        + f" (volume launches 3); after a checkpoint round trip sdf_vis('v') comes back by name "
+        f"(equal payload) and renders the same bits"
+    ))
+    check = density_volume_check(dev, check_waters, *check_wh)
+    ds = DatasetComponent(SimpleNamespace(system=sys_, files={"system": "water_box"},
+                                          num_frames=traj.num_frames, stored_selections={},
+                                          events=EventBus()), device=dev)
+    (summary, _, ms_summary) = device_and_host_ms(ds.summary)
+    if summary["atoms"] != sys_.natoms or summary["water_atoms"] != sys_.natoms:
+        raise AssertionError(f"dataset summary {summary}")
+    phase("density-volume", t0, (
+        f"small box CUDA vs CPU at {check_wh[0]}x{check_wh[1]}: {check}; dataset summary of the "
+        f"{summary['atoms']}-atom box {ms_summary:.1f} ms ({summary['residues']} residues, "
+        f"{summary['bonds']} bonds, {summary['frames']} frames)"
+    ))
+
+
+def density_volume_check(dev, n_waters: int, width: int, height: int) -> str:
+    """The density-volume component on the card against the CPU over one
+    small box's result (DV_SCRIPT on water_box(n_waters), evaluated on the
+    CPU, whose tests hold the component to the JAX package), unjittered,
+    with the reference structures at their ideal coordinates (the aligned
+    waters: a well-conditioned Kabsch): the reference frames within
+    DV_FRAME_RTOL of their largest entry; the references (raster.cu on frames the card's float32
+    Kabsch rounds apart from the CPU's) with at most DV_REF_SHARE of the
+    pixels off in coverage or in depth beyond TIE_RTOL, rgba within
+    DV_REF_RGBA elsewhere; the volume alone within VOL_TOL at decided
+    pixels, the composite within DV_REF_RGBA at 99% of pixels; and the dataset's
+    remap_element on both devices (equal elements and bonds)."""
+    import copy
+    import functools
+
+    small_sys, small_traj = water_box(n_waters, n_frames=2, seed=SEED)
+    frames, cells = small_traj.load_frames([0, 1])
+    cs = compile_script(DV_SCRIPT, small_sys, "cpu")
+    r = Evaluator(cs, trajectory_from_numpy(frames, cells, "cpu"), chunk=2).run()
+    marches = []
+    real = cuda_volume.render
+
+    def recorded(grid, tf, cvol, rays_, march, jitter=None, scene_depth=None, rays_out=None):
+        if grid.device.type == "cpu":
+            table = ray_setup(rays_, None, scene_depth, device="cpu")
+            und = []
+            cuda_volume.march_plain(grid, tf, cvol, table, rays_.width, rays_.height, march,
+                                    undecided=und)
+            marches.append(und[0])
+        return real(grid, tf, cvol, rays_, march, jitter, scene_depth, rays_out)
+
+    out = {}
+    with mock.patch.object(vol_mod, "VolumeRenderSettings",
+                           functools.partial(VolumeRenderSettings, jitter=False)), \
+            mock.patch.object(cuda_volume, "render", recorded):
+        for d in ("cpu", dev):
+            sess = SimpleNamespace(system=small_sys, trajectory=small_traj, compiled=cs,
+                                   eval_result=r, events=EventBus(),
+                                   current_coords=small_sys.coords)
+            comp = DensityVolumeComponent(sess, device=d)
+            refs = comp.render_references("v", None, width, height, max_structures=DV_STRUCTURES)
+            vol = comp.render("v", width, height)
+            composite = comp.render_composite("v", None, width, height,
+                                              max_structures=DV_STRUCTURES)
+            out[str(d)] = [t.cpu() for t in (*refs, *vol, composite)] + [
+                comp.reference_frames("v")]
+    ri, rd, vi, vd, co, m_cpu = out["cpu"]
+    gri, grd, gvi, gvd, gco, m_gpu = out[str(dev)]
+    frame_err = float(np.abs(m_cpu - m_gpu).max() / np.abs(m_cpu).max())
+    fin = torch.isfinite(rd) & torch.isfinite(grd)
+    ref_off = (torch.isfinite(rd) != torch.isfinite(grd)) | (fin & ((rd - grd).abs() > TIE_RTOL * rd.abs()))
+    ref_err = float((ri - gri).abs().amax(-1)[~ref_off].max())
+    if (frame_err > DV_FRAME_RTOL or int(ref_off.sum()) > DV_REF_SHARE * ref_off.numel()
+            or ref_err > DV_REF_RGBA):
+        raise AssertionError(f"references CUDA vs CPU: frames {frame_err}, "
+                             f"{int(ref_off.sum())} pixels off, rgba {ref_err}")
+    und = marches[0]
+    cmp = compare_volume((gvi, gvd), (vi, vd), und)
+    e = (co - gco).abs().amax(-1)
+    frac = float((e <= DV_REF_RGBA).double().mean())
+    if frac < 0.99:
+        raise AssertionError(f"composite CUDA vs CPU: {frac} of pixels within {DV_REF_RGBA:g}")
+    remapped = {}
+    for d in ("cpu", dev):
+        s = copy.deepcopy(small_sys)
+        n = DatasetComponent(SimpleNamespace(system=s, stored_selections={}, events=EventBus()),
+                             device=d).remap_element("residue(1:10) and element('O')", "S")
+        remapped[str(d)] = (n, s.element.copy(), s.bonds.copy())
+    (n_c, el_c, b_c), (n_g, el_g, b_g) = remapped["cpu"], remapped[str(dev)]
+    if not (n_c == n_g == 10 and np.array_equal(el_c, el_g) and np.array_equal(b_c, b_g)):
+        raise AssertionError(f"remap_element CUDA vs CPU: {n_c} / {n_g} atoms")
+    return (f"reference frames max diff {frame_err:.3g} of the largest entry; references {int(ref_off.sum())} pixels "
+            f"off (depth beyond {TIE_RTOL:g} relative or coverage), rgba {ref_err:.3g} elsewhere; volume "
+            f"rgba {cmp['rgba_err']:.3g} depth {cmp['depth_err']:.3g} at decided pixels "
+            f"({cmp['undecided']} undecided); composite within {DV_REF_RGBA:g} at "
+            f"{frac * 100:.2f}% (max {float(e.max()):.3g}); "
+            f"remap_element on {small_sys.natoms} atoms: {n_g} remapped, elements and "
+            f"{len(b_g)} bonds equal")
+
+
 def main() -> None:
     # -- 1. device ---------------------------------------------------------
     t0 = time.perf_counter()
@@ -2569,6 +3062,10 @@ def main() -> None:
     # -- 17.-18. the protein views, the backbone analyses
     cartoon = cartoon_phase(dev, smi)
     rama_phase(dev)
+
+    # -- 19.-20. the VeloxChem window, the SDF window
+    qm_phase(dev)
+    density_volume_phase(dev, sys_, compiled, res, traj)
 
     print(json.dumps({"kernels": [
         {

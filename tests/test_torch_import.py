@@ -1,5 +1,7 @@
 """viamd_tpu_torch must never import jax or the JAX package (whose package
-import pulls in jax): checked in a fresh interpreter."""
+import pulls in jax), nor h5py or PIL, which the GPU machine lacks (the
+VeloxChem reader and the image export import them when called): checked in
+a fresh interpreter."""
 
 import subprocess
 import sys
@@ -18,8 +20,8 @@ for name in names:
 from viamd_tpu_torch.components.ramachandran import reference_density
 assert reference_density("glycine").shape == (180, 180)
 bad = sorted(m for m in sys.modules
-             if m == "jax" or m.startswith(("jax.", "jaxlib"))
-             or m == "viamd_tpu" or m.startswith("viamd_tpu."))
+             if m in ("jax", "viamd_tpu", "h5py", "PIL")
+             or m.startswith(("jax.", "jaxlib", "viamd_tpu.", "h5py.", "PIL.")))
 print(len(names), bad)
 for mod in ("ops.cuda_rdf", "render.camera", "render.color", "render.cuda_raster",
             "render.raster", "render.hbao", "render.fxaa", "render.postprocess",
@@ -32,7 +34,9 @@ for mod in ("ops.cuda_rdf", "render.camera", "render.color", "render.cuda_raster
             "app.events", "app.tasks", "ops.backbone", "render.backbone_rep",
             "render.ribbon_mesh", "render.triangles", "render.cuda_triangles",
             "render.font", "render.overlay", "components", "components.ramachandran",
-            "components.shapespace"):
+            "components.shapespace", "components.veloxchem", "components.density_volume",
+            "components.dataset", "core.vlog", "io.basis", "io.vlx", "ops.gto", "ops.topo",
+            "app.export", "interop"):
     assert "viamd_tpu_torch." + mod in names, (mod, names)
 assert not bad, bad
 """

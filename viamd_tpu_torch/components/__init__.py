@@ -2,13 +2,23 @@
 
 Counterpart of viamd_tpu/components (the reference's self-registering
 EventHandler components, src/components/): each subscribes to session
-events in its constructor and exposes its analysis surface as methods.
-Ported so far: Ramachandran and shape space, which read only a session's
-system, trajectory, events, tasks and stored selections. `density_volume`,
-`dataset` and `veloxchem` are not ported yet.
+events in its constructor and exposes its analysis and rendering surface
+as methods, computing on the device it is given (`device="cuda"` unless
+the caller asks for the CPU). Each reads only the session members its
+docstring lists, so a `types.SimpleNamespace` over the port's objects
+serves as a session.
 """
 
+from viamd_tpu_torch.components.dataset import DatasetComponent
+from viamd_tpu_torch.components.density_volume import DensityVolumeComponent
 from viamd_tpu_torch.components.ramachandran import RamachandranComponent
 from viamd_tpu_torch.components.shapespace import ShapespaceComponent
+from viamd_tpu_torch.components.veloxchem import VeloxchemComponent
 
-__all__ = ["RamachandranComponent", "ShapespaceComponent"]
+__all__ = [
+    "DatasetComponent",
+    "DensityVolumeComponent",
+    "RamachandranComponent",
+    "ShapespaceComponent",
+    "VeloxchemComponent",
+]

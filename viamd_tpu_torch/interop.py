@@ -2,10 +2,11 @@
 numpy data.
 
 The system has no weights: its state is the topology, the cell and the
-frames; the renderer's is the temporal history of its TAA reprojector. These functions build the
-port's objects from plain numpy arrays — the form in which the JAX
-package's `System` fields, trajectories and TAA history can be handed
-over without either package importing the other.
+frames; the renderer's is the temporal history of its TAA reprojector; the
+quantum-chemistry window's is a checkpoint's `QMData`. These functions
+build the port's objects from plain numpy arrays — the form in which the
+JAX package's `System` fields, trajectories, TAA history and `QMData` can
+be handed over without either package importing the other.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 
 from viamd_tpu_torch.core.system import Backbone, InstanceTable, LabelTable, System
 from viamd_tpu_torch.core.unitcell import UnitCell
+from viamd_tpu_torch.io import vlx
 from viamd_tpu_torch.io.trajectory import DeviceTrajectory
 from viamd_tpu_torch.render.taa import TAAReprojector
 
@@ -94,3 +96,48 @@ def taa_state_from_numpy(history, frame: int, device, feedback_min: float = 0.88
     return TAAReprojector(feedback_min=feedback_min, feedback_max=feedback_max,
                           history=hist, frame=int(frame))
 
+
+
+_QM_SECTIONS = {
+    "excited": vlx.ExcitedStates,
+    "vib": vlx.VibrationalData,
+    "opt": vlx.OptimizationData,
+    "scf_history": vlx.ScfHistory,
+    "rsp_samples": vlx.ResponseSamples,
+}
+
+
+def qmdata_from_numpy(fields: dict) -> vlx.QMData:
+    """Port `QMData` from the JAX package's `QMData` dataclass fields.
+
+    `fields` maps field names to numpy arrays or scalars; `shells` is a
+    list of (center, angular, exponents, contraction) tuples; the sections
+    `excited`, `vib`, `opt`, `scf_history` and `rsp_samples` are dicts of
+    their dataclass fields (or None); `atom_properties` a dict of arrays.
+    Fields left out take the dataclass defaults; `_prims` (the lazily built
+    primitive expansion) is always rebuilt by the port.
+    """
+    kw = {}
+    for f in dataclasses.fields(vlx.QMData):
+        name = f.name
+        if name == "_prims" or name not in fields:
+            if f.default is dataclasses.MISSING and f.default_factory is dataclasses.MISSING:
+                raise KeyError(f"QMData field '{name}' missing")
+            continue
+        v = fields[name]
+        if name == "shells":
+            v = [vlx.Shell(center=np.array(c, np.float32), angular=int(a),
+                           exponents=np.array(e, np.float32),
+                           contraction=np.array(k, np.float32)) for c, a, e, k in v]
+        elif name in _QM_SECTIONS and v is not None:
+            v = _QM_SECTIONS[name](**{k: _copy(x) for k, x in v.items()})
+        elif name == "atom_properties" and v is not None:
+            v = {str(k): np.array(x) for k, x in v.items()}
+        else:
+            v = _copy(v)
+        kw[name] = v
+    return vlx.QMData(**kw)
+
+
+def _copy(v):
+    return np.array(v) if isinstance(v, np.ndarray) else v

@@ -343,7 +343,10 @@ class _Compiler:
             source=src,
             device=self.device,
             warnings=list(self.warnings),
-            visualization={k: list(v) for k, v in self.vis.items()},
+            visualization={
+                k: dict(v) if isinstance(v, dict) else list(v)
+                for k, v in self.vis.items()
+            },
             routes=self.routes,
             grid_sites=self.grid_sites,
             grids=grids0,
@@ -372,6 +375,10 @@ class _Compiler:
                     temporal[nm] = v
                 elif isinstance(v, AccumValue):
                     accum[nm] = v
+                    if v.spec is not None and v.spec.vis is not None:
+                        # name-keyed vis.sdf mirror: the call-ordered list
+                        # desynchronizes under property reassignment
+                        self.vis.setdefault("sdf_by_name", {})[nm] = v.spec.vis
                 elif isinstance(v, (int, float, np.ndarray)):
                     temporal[nm] = DynValue(self.const(v, np.float32))
         return temporal, accum, selections
