@@ -130,11 +130,13 @@ each (several for 16–20):
    transform and binning, csrc/triangles.cu, the tube through raster.cu,
    the depth composite) over three runs, launch counts set to 0 before and
    read after; the triangle kernel against its plain version on frame 0
-   over the whole frame (0 mismatching rgba, depth and pick pixels), its
+   over the whole frame (0 mismatching rgba, depth and pick pixels), the
+   ray tests it does (every pixel of a tile against every candidate), its
    device time, registers and spills, plain time and bound; 4,096 sampled
    pixels against a brute-force cast over every triangle; the tiles over
    JAX's 64-slot cap and the sampled pixels such a cap gets wrong; the
-   ribbons mode once; an overlay frame over the cartoon;
+   ribbons mode once; an overlay frame over the cartoon, its triangle
+   launches equal to the plain version;
 18. `[rama]`: the backbone analyses — the Ramachandran component over the
    bundle × 1,000 frames on the card (compute_angles, density), frames
    0–7 against the CPU, and the shape-space component over the 16 chains
@@ -144,15 +146,23 @@ each (several for 16–20):
    seeded synthetic MO coefficients (a QR's Q), 140 occupied orbitals, one
    synthetic excited state, through components.VeloxchemComponent: the
    Export window's OBB grids at "mid" and "high", HOMO and the electron
-   density each (ms by events and host clock, Φ builds, peak memory, the
-   bound and the grid's share of it, export_volume to .mhd/.raw/.xyz
-   under `.chip_scratch/`, removed); orbital_grid at 128³ and
+   density each through csrc/gto.cu (ψ mode, one launch, for the HOMO; Φ
+   mode a chunk and torch.matmul for the density; ms by events and host
+   clock, launches, no primitive_matrix build, peak memory, the pairs that
+   are not 0 (α·r² < 40 at the voxel) and the pairs the kernel's block
+   screen evaluates, the bounds over those two and over all pairs and the
+   grid's share of each,
+   export_volume to .mhd/.raw/.xyz under `.chip_scratch/`, removed); the
+   kernel against its plain version on the card (ψ over the whole "mid"
+   grid within its stated bound, the "mid" density, Φ rows of sampled
+   "high" chunks bit for bit) and the kernel's and the plain version's
+   "high" HOMO times; orbital_grid at 128³ and
    render_orbital at 1920×1080 through volume.cu; the 64³ density's
    topology (critical points, edges, the numpy host time) and
    render_topology through raster.cu; the excited state's transition
    density, NTO pair and charge transfer by grid and by Mulliken, two
-   grid runs bit-equal; 8,192 sampled voxels of the "high" grid and the
-   attribution on the card against the CPU;
+   grid runs bit-equal; 8,192 sampled voxels of the "high" grid (eval_gto
+   and the kernel's grid) and the attribution on the card against the CPU;
 20. `[density-volume]`: the SDF window over the headline result (`v`, 64
    reference structures) through components.DensityVolumeComponent:
    render_composite at 1920×1080 stage by stage, launch counts set to 0
@@ -254,7 +264,7 @@ from viamd_tpu_torch.components import (
     VeloxchemComponent,
 )
 from viamd_tpu_torch.io.vlx import BOHR_PER_ANGSTROM, ExcitedStates, QMData, shells_from_label
-from viamd_tpu_torch.ops import gto
+from viamd_tpu_torch.ops import cuda_gto, gto
 from viamd_tpu_torch.ops.topo import bond_graph, critical_points
 from viamd_tpu_torch.render import volume as vol_mod
 
@@ -393,6 +403,11 @@ OPS_TRI_TEST, OPS_TRI_STAGE, OPS_TRI_RAY, OPS_TRI_SHADE = 36, 42, 10, 60
 # charges within QM_CHARGE_RTOL (the same winners and fixed-point sums)
 QM_RES, QM_PRESETS, QM_ORBITAL_DIMS, QM_TOPO_DIMS, QM_SAMPLES = 8, ("mid", "high"), 128, 64, 8_192
 QM_RTOL, QM_CHARGE_RTOL = 1e-5, 1e-6
+# csrc/gto.cu against its plain version on the card: Φ rows bit for bit
+# (QM_PHI_CHUNKS chunks of QM_SAMPLES voxels at seeded offsets of the last
+# preset's grid); ψ within 2·K·2⁻²⁴·Σ_k |φ_k·c_k| at each voxel (both sum
+# orders' float32 error bound) over the whole first preset's grid
+QM_PHI_CHUNKS, F32_U = 4, 2.0**-24
 # f32 operations of one primitive evaluation (ops/gto.py::primitive_matrix),
 # the exp counted as one: d (3), r² (5), α·r² (1), the cutoff test (1),
 # −α·r² (1), exp (1), the product of the three powers (2), ang · rad (1);
@@ -2024,7 +2039,8 @@ def cartoon_phase(dev, smi: str, n_side: int = BUNDLE_SIDE, n_res: int = BUNDLE_
     brute-force cast over every triangle; the tiles over JAX's 64-slot cap
     and the sampled pixels a 64-cap would get wrong (informational); the
     ribbons mode once; an overlay frame over the cartoon (a box, a distance
-    line and label, an angle arc, a filled triangle, a text label)."""
+    line and label, an angle arc, a filled triangle, a text label), its
+    triangle launches held to the plain version."""
     t0 = time.perf_counter()
     sys_, base = helix_bundle(n_side, n_res)
     rng = np.random.RandomState(SEED)
@@ -2155,11 +2171,25 @@ def cartoon_phase(dev, smi: str, n_side: int = BUNDLE_SIDE, n_res: int = BUNDLE_
         return (torch.where(closer[..., None], o_img, f0["img"]),
                 torch.where(closer, o_pick, f0["pick"]))
 
-    ov_img, ov_pick = overlay()
+    captured = []
+    real_raster = cuda_triangles.raster
+
+    def capture(*a, **k):
+        captured.append(a)
+        return real_raster(*a, **k)
+
+    with mock.patch.object(cuda_triangles, "raster", capture):
+        ov_img, ov_pick = overlay()
     torch.cuda.synchronize()
     n_label, n_fill = int((ov_pick == label_id).sum()), int((ov_pick == fill_id).sum())
     if not (n_label > 0 and n_fill > 0 and bool(torch.isfinite(ov_img).all())):
         raise AssertionError(f"overlay: label pixels {n_label}, fill pixels {n_fill}")
+    # the overlay's triangle launches against the plain version
+    ov_mism = sum(int((g != w).sum()) for a in captured
+                  for g, w in zip(real_raster(*a), raster_triangles_plain(*a)))
+    if not captured or ov_mism:
+        raise AssertionError(f"overlay: {len(captured)} triangle launches, {ov_mism} values "
+                             "off the plain version")
     ov_ms = []
     for _ in range(3):
         t1 = time.perf_counter()
@@ -2169,10 +2199,12 @@ def cartoon_phase(dev, smi: str, n_side: int = BUNDLE_SIDE, n_res: int = BUNDLE_
     phase("cartoon-overlay", t0, (
         f"box + distance line and label + angle arc + fill + label over the cartoon "
         f"frame: ms {' / '.join(f'{v:.3f}' for v in ov_ms)}; label pixels {n_label}, "
-        f"fill pixels {n_fill}"
+        f"fill pixels {n_fill}; its {len(captured)} triangle launch(es) equal the plain "
+        f"version in every value"
     ))
     return dict(launches=tri_launches, max_abs_err=0.0, ms=ms_k, plain_ms=ms_plain,
-                bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"], call_ms=ms_call)
+                bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"], call_ms=ms_call,
+                tests=bnd["tests"])
 
 
 def rama_phase(dev, n_side: int = BUNDLE_SIDE, n_res: int = BUNDLE_RES,
@@ -2287,16 +2319,59 @@ def device_and_host_ms(fn):
     return out, start.elapsed_time(end), (time.perf_counter() - t1) * 1e3
 
 
-def gto_bound(P: int, lmn: np.ndarray, M: int, density: bool) -> tuple:
-    """(ms, bound_by, ops, bytes) of one grid: P points against the
-    basis's primitives (their power multiplies counted from lmn) and M
-    coefficient columns; the grid written once, the inputs read once."""
+def gto_bound(pairs: np.ndarray, P: int, lmn: np.ndarray, M: int, density: bool) -> tuple:
+    """(ms, bound_by, ops, bytes) of one grid of P points and M coefficient
+    columns, over pairs[k] (voxel, primitive k) pairs: each pair's
+    evaluation (its power multiplies counted from lmn) and its share of the
+    contraction, ρ's per-column work per voxel; the grid written once, the
+    inputs read once. pairs = P for every k counts all pairs."""
     K = lmn.shape[0]
-    ops = P * (K * OPS_GTO_PRIM + int(np.maximum(lmn - 1, 0).sum())) + 2 * P * K * M
+    pw = np.maximum(lmn - 1, 0).sum(1)
+    n = pairs.astype(np.int64)
+    ops = int((n * (OPS_GTO_PRIM + pw)).sum()) + 2 * int(n.sum()) * M
     if density:
         ops += OPS_RHO_COL * P * M
     nbytes = P * 4 + K * (3 * 4 + 4 + 3 * 4 + M * 4)
     return (*bound(ops, nbytes), ops, nbytes)
+
+
+def needed_pairs(points, basis, chunk: int = 16_384) -> np.ndarray:
+    """(K,) count, per primitive, of the voxels where it is not exactly 0:
+    α·r² < 40 in ops/gto.py::primitive_matrix's float32 operations. The
+    least work of any exact implementation, whatever its blocking."""
+    n = torch.zeros(basis.centers.shape[0], dtype=torch.int64, device=points.device)
+    for c0 in range(0, points.shape[0], chunk):
+        d = points[c0 : c0 + chunk, None, :] - basis.centers[None, :, :]
+        dx, dy, dz = d[..., 0], d[..., 1], d[..., 2]
+        ar2 = basis.exponents[None, :] * (dx * dx + dy * dy + dz * dz)
+        n += (ar2 < cuda_gto.CUTOFF).sum(0)
+    return n.cpu().numpy()
+
+
+def screen_pairs(points, groups, basis, chunk: int = 2048) -> np.ndarray:
+    """(K,) count, per primitive, of the voxels where the kernel evaluates
+    it: cuda_gto.screen_keep over the kernel's voxel groups (brick_voxels or
+    row_tiles), in chunks of groups."""
+    n = torch.zeros(basis.centers.shape[0], dtype=torch.int64, device=points.device)
+    for g0 in range(0, groups.shape[0], chunk):
+        g = groups[g0 : g0 + chunk]
+        keep = cuda_gto.screen_keep(points, g, basis.centers, basis.exponents)
+        n += (keep * (g >= 0).sum(1)[:, None]).sum(0)
+    return n.cpu().numpy()
+
+
+def plain_psi(basis, c, geo, chunk: int = gto.CHUNK):
+    """The plain ψ grid on geo's device (primitive_matrix and _contract by
+    chunks, the CPU route run on the card) → (ψ, Σ_k |φ_k·c_k|), flat."""
+    pts = gto.grid_points(geo["origin"], geo["voxel"], geo["dims"], geo["orientation"],
+                          device=geo["device"])
+    psi = torch.empty(pts.shape[0], dtype=torch.float32, device=pts.device)
+    mag = torch.empty_like(psi)
+    for c0 in range(0, pts.shape[0], chunk):
+        phi = basis.phi(pts[c0 : c0 + chunk])
+        psi[c0 : c0 + chunk] = gto._contract(phi, c)
+        mag[c0 : c0 + chunk] = (phi * c[None, :]).abs().sum(1)
+    return psi, mag
 
 
 def qm_phase(dev, n_res: int = QM_RES, presets=QM_PRESETS, orbital_dims: int = QM_ORBITAL_DIMS,
@@ -2328,6 +2403,13 @@ def qm_phase(dev, n_res: int = QM_RES, presets=QM_PRESETS, orbital_dims: int = Q
     SCRATCH.mkdir(exist_ok=True)
     work = Path(tempfile.mkdtemp(prefix="qm-", dir=SCRATCH))
     grids = {}
+    basis = gto._Basis(centers, exps, lmn, dev)
+    K = centers.shape[0]
+    cf = qm.primitives_for_orbital(homo)[2]
+    c_homo = gto._f32(cf, dev)
+    C_all = qm.primitives_all()[2]
+    occ = np.asarray(qm.mo_occupations, np.float32)
+    main_launches = 0
     try:
         for preset in presets:
             spa = vlx.RESOLUTION_SAMPLES_PER_ANG[preset]
@@ -2335,9 +2417,8 @@ def qm_phase(dev, n_res: int = QM_RES, presets=QM_PRESETS, orbital_dims: int = Q
             dims_t = tuple(int(d) for d in dims)
             P = int(np.prod(dims))
             geo = dict(origin=lo, voxel=voxel, dims=dims_t, orientation=R, device=dev)
-            cf = qm.primitives_for_orbital(homo)[2]
-            C_all = qm.primitives_all()[2]
-            occ = np.asarray(qm.mo_occupations, np.float32)
+            pts = gto.grid_points(lo, voxel, dims_t, R, device=dev)
+            need = needed_pairs(pts, basis)
             for source, fn, M in (
                 ("mo", lambda: gto.eval_gto_grid(centers, exps, cf, lmn, **geo), 1),
                 ("electron_density", lambda: gto.density_grid(centers, exps, C_all, lmn,
@@ -2348,18 +2429,30 @@ def qm_phase(dev, n_res: int = QM_RES, presets=QM_PRESETS, orbital_dims: int = Q
                 torch.cuda.reset_peak_memory_stats()
                 base = torch.cuda.memory_allocated()
                 runs = []
+                per_call = 1 if source == "mo" else -(-P // gto.CUDA_CHUNK)
                 for _ in range(2):
                     phis[0] = 0
+                    n0 = cuda_gto.launches
                     with mock.patch.object(gto, "primitive_matrix", counted):
                         g, ms_dev, ms_host = device_and_host_ms(fn)
                     runs.append((ms_dev, ms_host))
-                builds = phis[0]
+                    launched = cuda_gto.launches - n0  # just after
+                    if phis[0] or launched != per_call:
+                        raise AssertionError(f"qm {preset} {source}: {launched} gto launches "
+                                             f"(want {per_call}), {phis[0]} primitive_matrix builds")
+                    main_launches += launched
                 peak = (torch.cuda.max_memory_allocated() - base) / 2**20
                 if not (g.shape == dims_t and bool(torch.isfinite(g).all())
                         and float(g.abs().max()) > 0):
                     raise AssertionError(f"qm {preset} {source} grid {tuple(g.shape)}")
-                if builds != -(-P // gto.CHUNK):
-                    raise AssertionError(f"qm {preset} {source}: {builds} Φ builds")
+                # the pairs any exact implementation evaluates, and the pairs
+                # the kernel's block screen keeps (its bricks or row tiles)
+                if source == "mo":
+                    done = screen_pairs(pts, cuda_gto.brick_voxels(dims_t, device=dev), basis)
+                else:
+                    done = sum(screen_pairs(pts, cuda_gto.row_tiles(c0, min(gto.CUDA_CHUNK, P - c0),
+                                                                    device=dev), basis)
+                               for c0 in range(0, P, gto.CUDA_CHUNK))
                 t1 = time.perf_counter()
                 files = vlx.export_volume(str(work / f"{preset}-{source}.mhd"), source=source,
                                           fmt="mhd", resolution=preset)
@@ -2369,20 +2462,105 @@ def qm_phase(dev, n_res: int = QM_RES, presets=QM_PRESETS, orbital_dims: int = Q
                 if not (f"DimSize = {dims[0]} {dims[1]} {dims[2]}" in hdr and raw.size == P
                         and np.isfinite(raw).all()):
                     raise AssertionError(f"qm export {preset} {source}")
-                b_ms, b_by, ops, nbytes = gto_bound(P, lmn, M, source != "mo")
+                density = source != "mo"
+                a_ms, a_by, a_ops, nbytes = gto_bound(np.full(K, P), P, lmn, M, density)
+                n_ms, n_by, n_ops, _ = gto_bound(need, P, lmn, M, density)
+                w_ms, w_by, w_ops, _ = gto_bound(done, P, lmn, M, density)
                 best = min(r[0] for r in runs)
-                grids[(preset, source)] = dict(ms=best, bound_ms=b_ms, bound_by=b_by, dims=dims_t,
-                                               builds=builds, peak_mib=peak)
+                grids[(preset, source)] = dict(ms=best, bound_ms=n_ms, bound_by=n_by,
+                                               bound_all_ms=a_ms, bound_kernel_ms=w_ms,
+                                               dims=dims_t, peak_mib=peak, grid=g)
                 phase("qm", t0, (
                     f"export grid {preset} {dims_t} ({P} points) {source}: {M} column(s); ms "
                     f"(events / host) " + " | ".join(f"{a:.2f} / {b:.2f}" for a, b in runs)
-                    + f"; Φ builds (chunks of {gto.CHUNK}) {builds}; peak mem +{peak:.1f} MiB; "
-                    f"bound {b_ms:.3f} ms ({b_by}; {ops:.6g} operations, {nbytes} bytes), grid at "
-                    f"{b_ms / best * 100:.1f}% of it; export_volume (grid, copy, .mhd/.raw/.xyz) "
-                    f"{ms_export:.1f} ms, {raw.nbytes / 2**20:.1f} MiB written"
+                    + f"; gto launches a grid {per_call} ({'ψ' if source == 'mo' else 'Φ'} mode), "
+                    f"primitive_matrix builds 0; peak mem +{peak:.1f} MiB; pairs {P * K}, of them "
+                    f"not 0 (α·r² < 40) {int(need.sum())} ({need.sum() / (P * K) * 100:.2f}%), "
+                    f"evaluated by the kernel's screen of {'4x8x8 bricks' if source == 'mo' else '32-row tiles'} "
+                    f"{int(done.sum())} ({done.sum() / (P * K) * 100:.2f}%); bound over the pairs "
+                    f"not 0 {n_ms:.3f} ms ({n_by}; {n_ops:.6g} operations, {nbytes} bytes), grid at "
+                    f"{n_ms / best * 100:.1f}% of it; over the kernel's pairs {w_ms:.3f} ms ({w_by}; "
+                    f"{w_ops:.6g} operations), {w_ms / best * 100:.1f}%; over all pairs {a_ms:.3f} ms "
+                    f"({a_by}; {a_ops:.6g} operations), {a_ms / best * 100:.1f}%; export_volume (grid, copy, "
+                    f".mhd/.raw/.xyz) {ms_export:.1f} ms, {raw.nbytes / 2**20:.1f} MiB written"
                 ))
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+    # the kernel against its plain version on the card: ψ over the whole
+    # first preset's grid, Φ rows of sampled chunks of the last preset's
+    t1 = time.perf_counter()
+    R, lo, voxel, dims = vlx.obb_geometry(vlx.RESOLUTION_SAMPLES_PER_ANG[presets[0]])
+    geo = dict(origin=lo, voxel=voxel, dims=tuple(int(d) for d in dims), orientation=R, device=dev)
+    want, mag = plain_psi(basis, c_homo, geo)
+    got = grids[(presets[0], "mo")]["grid"].reshape(-1)
+    psi_err = float((got - want).abs().max())
+    psi_ratio = float(((got - want).abs() / (2 * K * F32_U * mag).clamp_min(1e-38)).max())
+    if not bool(((got - want).abs() <= 2 * K * F32_U * mag).all()):
+        raise AssertionError(f"gto ψ {presets[0]}: off its plain version by {psi_ratio:.3g} of "
+                             "the bound")
+    C_occ = gto._f32(C_all, dev)[:, torch.as_tensor(np.flatnonzero(occ), device=dev)]
+    occ_t = torch.as_tensor(occ[occ != 0], device=dev)
+
+    def rho_plain(block):
+        psi = basis.phi(block) @ C_occ
+        return (psi * psi * occ_t[None, :]).sum(1)
+
+    rho_want = gto._over_chunks(rho_plain, lo, voxel, geo["dims"], R, gto.CUDA_CHUNK,
+                                dev).reshape(-1)
+    rho_got = grids[(presets[0], "electron_density")]["grid"].reshape(-1)
+    rho_err = float((rho_got - rho_want).abs().max() / rho_want.abs().max())
+    if not rho_err <= QM_RTOL:
+        raise AssertionError(f"gto density {presets[0]}: {rho_err:.3g} of the largest")
+    R, lo, voxel, dims = vlx.obb_geometry(vlx.RESOLUTION_SAMPLES_PER_ANG[presets[-1]])
+    dims_t = tuple(int(d) for d in dims)
+    pts = gto.grid_points(lo, voxel, dims_t, R, device=dev)
+    grid_gp = cuda_gto.grid_block(lo, voxel, R)
+    table = cuda_gto.prim_table(basis.centers, basis.exponents, basis.lmn)
+    rng = np.random.RandomState(SEED)
+    phi_diff = 0
+    c0s = sorted(int(c) for c in rng.randint(0, pts.shape[0] - samples, QM_PHI_CHUNKS))
+    for c0 in c0s:
+        got_phi = cuda_gto.phi_rows(table, grid_gp, dims_t, c0, samples)
+        want_phi = gto.primitive_matrix(pts[c0 : c0 + samples], basis.centers, basis.exponents,
+                                        basis.lmn)
+        phi_diff += int((got_phi != want_phi).sum())
+    if phi_diff:
+        raise AssertionError(f"gto Φ rows differ from primitive_matrix in {phi_diff} entries")
+    high_psi = grids[(presets[-1], "mo")]["grid"].reshape(-1)
+    high_err = 0.0
+    for c0 in c0s:
+        phi = basis.phi(pts[c0 : c0 + samples])
+        w = gto._contract(phi, c_homo)
+        m = (phi * c_homo[None, :]).abs().sum(1)
+        d = (high_psi[c0 : c0 + samples] - w).abs()
+        if not bool((d <= 2 * K * F32_U * m).all()):
+            raise AssertionError(f"gto ψ {presets[-1]} chunk {c0}: off its plain version")
+        high_err = max(high_err, float(d.max()))
+    # the plain ψ over the whole last preset's grid on the card (the route
+    # the port took before the kernel), for the kernel line
+    _, ms_plain, _ = device_and_host_ms(
+        lambda: gto._over_chunks(lambda b: gto._contract(basis.phi(b), c_homo), lo, voxel,
+                                 dims_t, R, gto.CHUNK, dev))
+    ms_kernel = cuda_ms(lambda: cuda_gto.psi_grid(
+        cuda_gto.prim_table(basis.centers, basis.exponents, basis.lmn, c_homo), grid_gp, dims_t),
+        reps=5, warmup=1, queued=True)
+    phase("qm", t0, (
+        f"gto.cu against its plain version on the card: ψ over the {presets[0]} grid "
+        f"({int(np.prod(geo['dims']))} voxels) max |Δ| {psi_err:.3g}, at most {psi_ratio:.3g} of "
+        f"its bound 2·K·2⁻²⁴·Σ|φc|; the {presets[0]} density (Φ mode + matmul) {rho_err:.3g} of "
+        f"the largest (tolerance {QM_RTOL:g}); Φ rows of {QM_PHI_CHUNKS} chunks of {samples} "
+        f"voxels of {presets[-1]} at {c0s}: {phi_diff} entries differ from primitive_matrix; ψ "
+        f"there max |Δ| {high_err:.3g}, within its bound; {presets[-1]} HOMO: kernel "
+        f"{ms_kernel:.3f} ms (device, queued), plain version {ms_plain:.2f} ms (events) "
+        f"({time.perf_counter() - t1:.1f} s)"
+    ))
+    out_kernel = dict(launches=main_launches, ms=ms_kernel, plain_ms=ms_plain,
+                      bound_ms=grids[(presets[-1], "mo")]["bound_ms"],
+                      bound_by=grids[(presets[-1], "mo")]["bound_by"],
+                      bound_all_ms=grids[(presets[-1], "mo")]["bound_all_ms"],
+                      bound_kernel_ms=grids[(presets[-1], "mo")]["bound_kernel_ms"],
+                      max_abs_err=max(psi_err, high_err))
 
     # the orbital window: the grid, then the ray-march through volume.cu
     (grid, _, _), ms_grid, host_grid = device_and_host_ms(
@@ -2471,9 +2649,13 @@ def qm_phase(dev, n_res: int = QM_RES, presets=QM_PRESETS, orbital_dims: int = Q
     pts_dev = gto.grid_points(lo, voxel, dims, R, device=dev)
     pick = np.random.RandomState(SEED).choice(pts_dev.shape[0], samples, replace=False)
     sample = pts_dev[torch.as_tensor(pick, device=dev)]
-    cf = qm.primitives_for_orbital(homo)[2]
     c_occ = qm.primitives_all()[2][:, : qm.n_occupied]
     errs = {}
+    k_cpu = gto.eval_gto(sample.cpu(), centers, exps, cf, lmn, device="cpu").double()
+    k_got = grids[(presets[-1], "mo")]["grid"].reshape(-1)[torch.as_tensor(pick, device=dev)]
+    errs["HOMO grid"] = float((k_got.cpu().double() - k_cpu).abs().max() / k_cpu.abs().max())
+    if not errs["HOMO grid"] <= QM_RTOL:
+        raise AssertionError(f"gto.cu HOMO grid vs the CPU: {errs['HOMO grid']:.3g} of the largest")
     for name, coeffs, rho_of in (("HOMO", cf, False), ("density", c_occ, True)):
         vals = {}
         for d, p in ((dev, sample), ("cpu", sample.cpu())):
@@ -2500,11 +2682,12 @@ def qm_phase(dev, n_res: int = QM_RES, presets=QM_PRESETS, orbital_dims: int = Q
     phase("qm", t0, (
         f"eval_gto on {samples} sampled voxels of the {presets[-1]} grid, CUDA vs CPU: HOMO "
         f"{errs['HOMO']:.3g}, {qm.n_occupied}-orbital density {errs['density']:.3g} of the "
-        f"largest |value| (tolerance {QM_RTOL:g}); attribute_grid_to_atoms on the {topo_dims}³ "
+        f"largest |value|; gto.cu's {presets[-1]} HOMO grid there against the CPU "
+        f"{errs['HOMO grid']:.3g} (tolerance {QM_RTOL:g}); attribute_grid_to_atoms on the {topo_dims}³ "
         f"attachment/detachment grids: winners equal {win_equal}, charges {q_err:.3g} relative "
         f"(tolerance {QM_CHARGE_RTOL:g})"
     ))
-    return grids
+    return out_kernel
 
 
 def density_volume_phase(dev, sys_, compiled, res, traj, width: int = WIDTH,
@@ -2698,9 +2881,9 @@ def main() -> None:
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
     cuda_build.build(dict([cuda_rdf.LIBRARY, cuda_raster.LIBRARY, cuda_volume.LIBRARY,
-                           cuda_triangles.LIBRARY]))
+                           cuda_triangles.LIBRARY, cuda_gto.LIBRARY]))
     lines = []
-    for mod in (cuda_rdf, cuda_raster, cuda_volume, cuda_triangles):
+    for mod in (cuda_rdf, cuda_raster, cuda_volume, cuda_triangles, cuda_gto):
         secs = mod.load_kernel()
         name = mod.LIBRARY[0]
         ptxas = [
@@ -3064,7 +3247,7 @@ def main() -> None:
     rama_phase(dev)
 
     # -- 19.-20. the VeloxChem window, the SDF window
-    qm_phase(dev)
+    qm = qm_phase(dev)
     density_volume_phase(dev, sys_, compiled, res, traj)
 
     print(json.dumps({"kernels": [
@@ -3149,6 +3332,22 @@ def main() -> None:
             "bound_ms": cartoon["bound_ms"],
             "bound_by": cartoon["bound_by"],
             "call_ms": cartoon["call_ms"],
+            "tests": cartoon["tests"],
+            "library_ms": None,
+        },
+        {
+            "name": "gto",
+            "route": "cuda",
+            "source": "viamd_tpu_torch/csrc/gto.cu",
+            "replaces": "viamd_tpu/ops/gto.py:40",
+            "launches": qm["launches"],
+            "max_abs_err": qm["max_abs_err"],
+            "ms": qm["ms"],
+            "plain_ms": qm["plain_ms"],
+            "bound_ms": qm["bound_ms"],
+            "bound_by": qm["bound_by"],
+            "bound_all_pairs_ms": qm["bound_all_ms"],
+            "bound_kernel_pairs_ms": qm["bound_kernel_ms"],
             "library_ms": None,
         },
     ]}))

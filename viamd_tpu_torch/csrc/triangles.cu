@@ -45,16 +45,20 @@
 // What bounds it on the H100: the ray tests, one per (pixel, candidate of
 // its tile) — ~36 float32 operations and a division each — against the
 // outputs' 24 bytes a pixel. At the 1080p cartoon frame chip_smoke.py
-// counts 126,444 tile entries, 32.4 M tests, ~1.2 GFLOP: ~0.02 ms at 67
-// TFLOP/s, below the ~15 us the outputs take at 3.35 TB/s, so bytes bound
-// it. The design: one block a tile, one thread a pixel; the block stages
+// counts 100,301 tile entries, 25,677,056 tests, ~0.95 GFLOP: ~0.014 ms at
+// 67 TFLOP/s, below the ~16 us the outputs and lists take at 3.35 TB/s, so
+// bytes bound it. The design: one block a tile, one thread a pixel; the block stages
 // 256 candidates at a time into shared memory and computes every
 // pixel-independent term of a candidate there once (e1, e2, tvec, qvec,
 // tnum, n), so a test is a cross product, three dot products, a division
 // and the comparisons, all from registers and broadcast shared loads.
-// Tiles with long lists (at most ~300 at the cartoon frame) run longest;
-// a front-to-back cull (stop a pixel once the next candidate's near depth
-// exceeds its hit, as csrc/raster.cu does) is later work.
+// Tiles with long lists (at most ~300 at the cartoon frame) run longest.
+// No cull: an exact front-to-back cull (each candidate's t bounded over
+// its tile, a suffix minimum along the sorted list, a warp vote to leave
+// the list, as csrc/raster.cu does) did 76% of the tests at the cartoon
+// frame and ran slower there than this kernel, as did every cheaper-test
+// variant tried (PERF.md, Findings): 55% of the tests are at pixels that
+// hit nothing, which no cull shortens.
 
 #include <cuda_runtime.h>
 

@@ -6,17 +6,27 @@ src/components/veloxchem/veloxchem.cpp:1044-1108).
 
 Primitives are cartesian gaussians  φ(r) = c · (x-X)^l (y-Y)^m (z-Z)^n ·
 exp(-α|r-R|²), with the contraction, normalization and MO coefficient folded
-into c. For P points and K primitives the (P, K) primitive matrix Φ is built
-elementwise, then contracted against coefficient columns: Σ φ·c for one
-orbital, `Φ @ C` (torch.matmul, float32 — TF32 stays off, as PyTorch
-leaves it) for many.
+into c. For P points and K primitives the plain version builds the (P, K)
+primitive matrix Φ elementwise (`primitive_matrix`) and contracts it
+against coefficient columns: Σ φ·c for one orbital (`_contract`), `Φ @ C`
+(torch.matmul, float32 — TF32 stays off, as PyTorch leaves it) for many.
 
-The grid functions stream voxels in chunks of `chunk` points (8192, as in
-the JAX package) with an exact tail instead of a padded last chunk; one Φ
-per chunk serves every contraction of that chunk (the JAX
-`transition_density_grid` builds Φ twice, for the occupied and the virtual
-columns). `density_grid` drops columns whose occupation is exactly 0 before
-the contraction: they add exactly 0 to ρ.
+The grid functions route by device. On a CUDA device they run
+csrc/gto.cu (ops/cuda_gto.py), which screens out, per block of voxels,
+the primitives that add exactly 0 there:
+- `eval_gto_grid` (one orbital: the HOMO, NTO and orbital-view grids) is
+  one ψ launch over the whole grid; no Φ is built;
+- `density_grid` and `transition_density_grid` take Φ from one Φ launch
+  per chunk of CUDA_CHUNK voxels (65,536: Φ is 247 MB at K = 944; the
+  chunk bounds memory only) and contract it with torch.matmul; one Φ per
+  chunk serves every contraction of that chunk (the JAX
+  `transition_density_grid` builds Φ twice).
+On a CPU device they take the plain version over chunks of `chunk`
+voxels (CHUNK, 8,192, as in the JAX package), with an exact tail instead
+of a padded last chunk; `chunk` is the plain version's alone.
+Any other device raises. `density_grid` drops columns whose occupation is
+exactly 0 before the contraction: they add exactly 0 to ρ. `eval_gto`, at
+arbitrary points, is the plain version on every device.
 
 `attribute_grid_to_atoms` computes what the JAX one-hot matmul computes: the
 first atom minimizing |r − x_a| − r_a for each voxel (`torch.argmin`, ties to
@@ -34,11 +44,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from viamd_tpu_torch.ops import cuda_gto
 from viamd_tpu_torch.ops.density import scaled_fixed_point_sum
-from viamd_tpu_torch.ops.pbc import cellmul
 from viamd_tpu_torch.ops.rdf import sqrt_rn
 
-CHUNK = 8192
+CHUNK = 8192  # voxels a Φ of the plain version, as in the JAX package
+CUDA_CHUNK = 65536  # voxels a Φ launch on CUDA: bounds memory only (247 MB at K = 944)
 
 
 def _f32(a, device) -> torch.Tensor:
@@ -88,7 +99,9 @@ def grid_points(origin, voxel, dims, orientation=None, *, device):
     """(P, 3) world-space voxel centers, z fastest. `orientation` (3, 3)
     columns are the grid axes: world = orientation @ (origin + (i + ½)·
     voxel), with origin in the grid frame (the OBB export grids); None =
-    axis-aligned."""
+    axis-aligned. The product is written out, world_j = p_x R_j0 + p_y R_j1
+    + p_z R_j2 (as the JAX package expands it), so csrc/gto.cu computes the
+    same centres."""
     nx, ny, nz = (int(d) for d in dims)
     P = nx * ny * nz
     ii = torch.arange(P, dtype=torch.int64, device=device)
@@ -98,7 +111,9 @@ def grid_points(origin, voxel, dims, orientation=None, *, device):
     idx = torch.stack([ix, iy, iz], dim=-1).to(torch.float32)
     pts = _f32(origin, device)[None, :] + (idx + 0.5) * _f32(voxel, device)[None, :]
     if orientation is not None:
-        pts = cellmul(pts, _f32(orientation, device).T)
+        r = _f32(orientation, "cpu").numpy()
+        pts = torch.stack([pts[:, 0] * float(r[j, 0]) + pts[:, 1] * float(r[j, 1])
+                           + pts[:, 2] * float(r[j, 2]) for j in range(3)], dim=-1)
     return pts
 
 
@@ -115,6 +130,14 @@ class _Basis:
         return primitive_matrix(block, self.centers, self.exponents, self.lmn)
 
 
+def _kernel_route(dev: torch.device) -> bool:
+    """True for the kernel (a CUDA device), False for the plain version
+    (the CPU); any other device raises."""
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no GTO grid for device {dev}")
+    return dev.type == "cuda"
+
+
 def _over_chunks(fn, origin, voxel, dims, orientation, chunk: int, device) -> torch.Tensor:
     """fn(points of one chunk) → (n,) values, over the grid's voxels in
     chunks (the last one shorter) → (nx, ny, nz)."""
@@ -125,23 +148,48 @@ def _over_chunks(fn, origin, voxel, dims, orientation, chunk: int, device) -> to
     return out.reshape(*(int(d) for d in dims))
 
 
+def _phi_chunks(basis: _Basis, fn, origin, voxel, dims, orientation, chunk, dev) -> torch.Tensor:
+    """fn(Φ of one chunk) → (n,) values, over the grid's voxels in chunks →
+    (nx, ny, nz): Φ from the kernel on CUDA (chunks of CUDA_CHUNK), from
+    the plain version on the CPU (chunks of `chunk`)."""
+    if not _kernel_route(dev):
+        return _over_chunks(lambda b: fn(basis.phi(b)), origin, voxel, dims, orientation,
+                            chunk, dev)
+    table = cuda_gto.prim_table(basis.centers, basis.exponents, basis.lmn)
+    grid = cuda_gto.grid_block(origin, voxel, orientation)
+    P = int(np.prod([int(d) for d in dims]))
+    out = torch.empty(P, dtype=torch.float32, device=dev)
+    for c0 in range(0, P, CUDA_CHUNK):
+        n = min(CUDA_CHUNK, P - c0)
+        out[c0 : c0 + n] = fn(cuda_gto.phi_rows(table, grid, dims, c0, n))
+    return out.reshape(*(int(d) for d in dims))
+
+
 def eval_gto_grid(centers, exponents, coeffs, lmn, origin, voxel, dims, chunk: int = CHUNK,
                   orientation=None, *, device) -> torch.Tensor:
     """One orbital ((K,) coeffs) on a voxel grid → (nx, ny, nz) tensor on
     `device`, the input of the volume ray-marcher (the orbital windows).
-    `orientation` rotates the grid into world space (OBB exports)."""
-    basis = _Basis(centers, exponents, lmn, device)
-    c = _f32(coeffs, device)
+    `orientation` rotates the grid into world space (OBB exports). On CUDA
+    one ψ launch of csrc/gto.cu; on the CPU the plain version in chunks of
+    `chunk` voxels."""
+    dev = torch.device(device)
+    basis = _Basis(centers, exponents, lmn, dev)
+    c = _f32(coeffs, dev)
+    if _kernel_route(dev):
+        table = cuda_gto.prim_table(basis.centers, basis.exponents, basis.lmn, c)
+        return cuda_gto.psi_grid(table, cuda_gto.grid_block(origin, voxel, orientation), dims)
     return _over_chunks(lambda b: _contract(basis.phi(b), c), origin, voxel, dims,
-                        orientation, chunk, device)
+                        orientation, chunk, dev)
 
 
 def density_grid(centers, exponents, mo_coeffs, lmn, origin, voxel, dims, occupations=None,
                  chunk: int = CHUNK, orientation=None, *, device) -> torch.Tensor:
     """Electron density ρ = Σ_mo occ·ψ_mo² on a grid (the electron-density
     window). mo_coeffs: (K, M); occupations: (M,) host values (2 each when
-    None). Columns of occupation exactly 0 are left out of the product."""
-    C = _f32(mo_coeffs, device)
+    None). Columns of occupation exactly 0 are left out of the product.
+    `chunk`: voxels a Φ of the plain version (the CPU); CUDA_CHUNK on CUDA."""
+    dev = torch.device(device)
+    C = _f32(mo_coeffs, dev)
     if occupations is None:
         occ = np.full(C.shape[1], 2.0, np.float32)
     else:
@@ -149,16 +197,16 @@ def density_grid(centers, exponents, mo_coeffs, lmn, origin, voxel, dims, occupa
                          np.float32).reshape(-1)
     keep = np.flatnonzero(occ != 0)
     if keep.size < C.shape[1]:
-        C = C[:, torch.as_tensor(keep, device=device)]
+        C = C[:, torch.as_tensor(keep, device=dev)]
         occ = occ[keep]
-    occ_t = torch.as_tensor(occ, device=device)
-    basis = _Basis(centers, exponents, lmn, device)
+    occ_t = torch.as_tensor(occ, device=dev)
+    basis = _Basis(centers, exponents, lmn, dev)
 
-    def rho(block):
-        psi = basis.phi(block) @ C
+    def rho(phi):
+        psi = phi @ C
         return (psi * psi * occ_t[None, :]).sum(1)
 
-    return _over_chunks(rho, origin, voxel, dims, orientation, chunk, device)
+    return _phi_chunks(basis, rho, origin, voxel, dims, orientation, chunk, dev)
 
 
 def transition_density_grid(centers, exponents, C_occ, C_virt, T, lmn, origin, voxel, dims,
@@ -166,14 +214,14 @@ def transition_density_grid(centers, exponents, C_occ, C_virt, T, lmn, origin, v
     """One-particle transition density ρ_T(r) = Σ_ia T_ia ψ_i(r) ψ_a(r) on a
     grid (the transition analysis window). C_occ: (K, nocc), C_virt:
     (K, nvirt) primitive-expanded MOs, T: (nocc, nvirt) amplitudes."""
-    Co, Cv, Tt = _f32(C_occ, device), _f32(C_virt, device), _f32(T, device)
-    basis = _Basis(centers, exponents, lmn, device)
+    dev = torch.device(device)
+    Co, Cv, Tt = _f32(C_occ, dev), _f32(C_virt, dev), _f32(T, dev)
+    basis = _Basis(centers, exponents, lmn, dev)
 
-    def rho_t(block):
-        phi = basis.phi(block)
+    def rho_t(phi):
         return ((phi @ Co) @ Tt * (phi @ Cv)).sum(1)
 
-    return _over_chunks(rho_t, origin, voxel, dims, orientation, chunk, device)
+    return _phi_chunks(basis, rho_t, origin, voxel, dims, orientation, chunk, dev)
 
 
 def grid_winners(grid_shape, origin, voxel, atom_xyz, radii=None, chunk: int = CHUNK, *,
