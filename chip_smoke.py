@@ -170,7 +170,21 @@ each (several for 16–20):
    and two isos, and at 512²; sdf_vis by name after a checkpoint round
    trip; the component on a small box against the CPU at 160×120; the
    dataset component's summary of the box and remap_element on the small
-   box on both devices.
+   box on both devices;
+21. `[session]`: the app layer over the headline box — the box written by
+   the port (write_gro, a lossless .vtraj of [main]'s frames) and opened
+   with Session(device="cuda").load, stage_to_device, set_script +
+   evaluate (frames/s over three runs; r, v, lin, plan, iso equal bit for
+   bit to compile_script + Evaluator on the loaded box, and r, lin, plan,
+   iso to [main]'s), frame 0 at 1920×1080 raw spacefill equal to
+   render_molecules, the composed frame (a selection outline, the in-scene
+   volume v, postprocess) by stage, the sync points inside render,
+   render_frames over 16 frames with TAA, recentring (two recentred frames
+   bit-equal), a .via round trip rendering the same pixels, the CLI's
+   `render demo --postprocess` in a process of its own, the viewer on
+   127.0.0.1 (/api/state, /render at full width, /api/orbit), and the
+   demo's cartoon with an orbital composited in-scene; launch counts of
+   all five kernels set to 0 before and read after.
 
 Ends with a JSON line of kernel results, the `nvidia-smi` name/power-limit
 line, and the JSON status line. Any failure raises (non-zero exit).
@@ -185,6 +199,7 @@ import os
 import shutil
 import statistics
 import subprocess
+import sys
 import tempfile
 import time
 from pathlib import Path
@@ -2862,6 +2877,319 @@ def density_volume_check(dev, n_waters: int, width: int, height: int) -> str:
             f"{len(b_g)} bonds equal")
 
 
+SESSION_TAA_FRAMES, SESSION_OUTLINE = 16, "residue(1:2000)"
+SESSION_STAGES = ("raster", "outline", "volume", "postprocess")
+KERNEL_MODULES = (cuda_rdf, cuda_raster, cuda_volume, cuda_triangles, cuda_gto)
+
+
+def reset_launches() -> None:
+    for mod in KERNEL_MODULES:
+        mod.launches = 0
+
+
+def read_launches() -> dict:
+    return {mod.LIBRARY[0]: mod.launches for mod in KERNEL_MODULES}
+
+
+@contextlib.contextmanager
+def uncounted():
+    """A reference run inside a counted phase: every count is put back to
+    what it was before, so that the phase counts only its own launches."""
+    saved = [mod.launches for mod in KERNEL_MODULES]
+    try:
+        yield
+    finally:
+        for mod, n in zip(KERNEL_MODULES, saved):
+            mod.launches = n
+
+
+def staged_frame(s, **kw):
+    """One Session.render(**kw) with each stage wrapped: → (result, {stage:
+    [device ms by events, host ms to a synchronize]}). The stages are the
+    representations' rasters (`_draw_rep`), the selection outlines, the
+    in-scene volume and the postprocess chain; each is fenced before and
+    after, so the host times add up to the frame's."""
+    times = {k: [0.0, 0.0] for k in SESSION_STAGES}
+
+    def timed(stage, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t1 = time.perf_counter()
+            start.record()
+            out = fn(*a, **k)
+            end.record()
+            torch.cuda.synchronize()
+            times[stage][0] += start.elapsed_time(end)
+            times[stage][1] += (time.perf_counter() - t1) * 1e3
+            return out
+        return run
+
+    with mock.patch.object(s, "_draw_rep", timed("raster", s._draw_rep)), \
+            mock.patch.object(s, "_draw_selection_outline",
+                              timed("outline", s._draw_selection_outline)), \
+            mock.patch.object(s, "_render_volume_inscene",
+                              timed("volume", s._render_volume_inscene)), \
+            mock.patch.object(postprocess, "execute", timed("postprocess", postprocess.execute)):
+        out = s.render(**kw)
+    torch.cuda.synchronize()
+    return out, times
+
+
+def session_phase(dev, sys_, traj, res, main_fps: float, n_taa: int = SESSION_TAA_FRAMES,
+                  width: int = WIDTH, height: int = HEIGHT, cli: bool = True,
+                  demo_res: int = 64, qm_res: int = QM_RES) -> dict:
+    """[session]: the app layer over the headline box, through the entry
+    points a user calls (phase 21). `sys_`, `traj`, `res`: `[main]`'s
+    system, device trajectory and result; `main_fps`: its best frames/s.
+    → {"launches": each kernel's launches by the phase's Session calls,
+    its reference runs not counted}."""
+    t0 = time.perf_counter()
+    SCRATCH.mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="session-", dir=SCRATCH))
+    try:
+        return _session_phase(dev, sys_, traj, res, main_fps, n_taa, width, height, cli,
+                              demo_res, qm_res, work, t0)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _session_phase(dev, sys_, traj, res, main_fps, n_taa, width, height, cli, demo_res,
+                   qm_res, work: Path, t0) -> dict:
+    from viamd_tpu_torch.app import Session
+    from viamd_tpu_torch.app.viewer import ViewerServer
+    from viamd_tpu_torch.io.cache import transcode
+    from viamd_tpu_torch.render import color as color_mod
+    from viamd_tpu_torch.render.camera import Camera
+
+    n_frames = traj.num_frames
+    gro, vtraj, via = str(work / "box.gro"), str(work / "box.vtraj"), str(work / "box.via")
+    # -- 1. the box as files, written by the port: the system as a .gro, the
+    # frames losslessly as a .vtraj; opened by Session.load
+    t1 = time.perf_counter()
+    write_gro(gro, sys_, sys_.coords())
+    transcode(traj, vtraj)
+    t_write = time.perf_counter() - t1
+    reset_launches()
+    s = Session(device=dev)
+    try:
+        t1 = time.perf_counter()
+        s.load(gro)
+        t_gro = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        s.load(vtraj)
+        staged = s.stage_to_device()
+        s.trajectory.stack[-1, -1].sum().item()  # the staging copy has landed
+        t_stage = time.perf_counter() - t1
+        if not staged or s.num_frames != n_frames or s.system.natoms != sys_.natoms:
+            raise AssertionError((staged, s.num_frames, s.system.natoms))
+        # -- 2. the headline script through Session.evaluate
+        t1 = time.perf_counter()
+        s.set_script(HEADLINE)
+        t_compile = time.perf_counter() - t1
+        if s.script_errors or s.compiled.routes != ["rdf:cell_list", "sdf:pairs"]:
+            raise AssertionError((s.script_errors, s.compiled.routes))
+        s.evaluate(chunk=CHUNK).force()
+        runs = []
+        for _ in range(3):
+            t1 = time.perf_counter()
+            got = s.evaluate(chunk=CHUNK)
+            got.force()
+            runs.append(n_frames / (time.perf_counter() - t1))
+        # [main]'s path (compile_script → Evaluator, chunk 64) on the same
+        # loaded system and frames
+        with uncounted():
+            ref = Evaluator(compile_script(HEADLINE, s.system, dev), s.trajectory,
+                            chunk=CHUNK).run()
+        bad = equal_results(got, ref)
+        if bad:
+            raise AssertionError(f"Session.evaluate differs from the Evaluator in {bad}")
+        # the frames are [main]'s bit for bit, so every property that reads
+        # only them equals [main]'s; v's reference structures come from the
+        # .gro's coordinates (0.001 nm), so v is held to the line above
+        bad = [k for k in ("lin", "plan", "iso") if not np.array_equal(got.temporal[k], res.temporal[k])]
+        if bad or not np.array_equal(got.distributions["r"], res.distributions["r"]):
+            raise AssertionError(f"Session.evaluate differs from [main] in {bad or ['r']}")
+        v_rel = float(np.abs(got.volumes["v"] - res.volumes["v"]).max() / np.abs(res.volumes["v"]).max())
+        # -- 3. frame 0 at full width: raw spacefill against render_molecules,
+        # then the composed frame (outline, in-scene volume, postprocess)
+        s.set_frame(0.0)
+        img, dep, pick = s.render(width, height)
+        cam = s.camera
+        cols = color_mod.color_atoms_cpk(s.system)
+        radii = np.where(cols[:, 3] > 0, s.system.radius, 0.0).astype(np.float32)
+        with uncounted():
+            want = render_molecules(s.trajectory.device_frame(0)[0], radii, cols,
+                                    cam.view_matrix(), cam.proj_matrix(width, height),
+                                    RasterSettings(width=width, height=height), device=dev)
+        if not all(torch.equal(a, b) for a, b in zip((img, dep, pick), want)):
+            raise AssertionError("Session.render differs from render_molecules")
+        s.select(SESSION_OUTLINE)
+        s.render(width, height, volume="v", postprocess=True)  # warm-up
+        composed = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = s.render(width, height, volume="v", postprocess=True)
+            torch.cuda.synchronize()
+            composed.append((time.perf_counter() - t1) * 1e3)
+        frame = out[0]
+        if frame.shape != (height, width, 4) or not bool(torch.isfinite(frame).all()):
+            raise AssertionError(("composed frame", tuple(frame.shape)))
+        _, stages = staged_frame(s, width=width, height=height, volume="v", postprocess=True)
+        syncs = sync_points(lambda: s.render(width, height, volume="v", postprocess=True))
+        # -- 4. a TAA movie over frames 0..n_taa-1
+        s.selection.clear()
+        list(s.render_frames(range(2), width, height, taa=True))  # warm-up
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        movie = [rgba for _, rgba in s.render_frames(range(n_taa), width, height, taa=True)]
+        torch.cuda.synchronize()
+        taa_ms = (time.perf_counter() - t1) * 1e3 / n_taa
+        if not bool(torch.isfinite(movie[-1]).all()):
+            raise AssertionError("TAA frame not finite")
+        # -- 5. recentring: two calls, the same bits (com_segments sums in
+        # fixed point); a float index_add_ (the parent's sum) beside it
+        s.recenter("resname('SOL')")
+        s.set_frame(0.5)
+        a, b = s.current_coords(), s.current_coords()
+        if not np.array_equal(a, b) or not np.isfinite(a).all():
+            raise AssertionError("two recentred frames differ")
+        x0 = s.device_coords()
+        seg = torch.as_tensor(np.asarray(s.system.atom_res_idx, np.int64), device=dev)
+
+        def atomic_seg_sum(x):
+            out = torch.zeros((s.system.nres, 3), device=dev)
+            return out.index_add_(0, seg, x)
+
+        atomic = [atomic_seg_sum(x0) for _ in range(4)]
+        atomic_differ = sum(not torch.equal(atomic[0], t) for t in atomic[1:])
+        rec_ms = cuda_ms(s.device_coords, reps=5, warmup=1)
+        # -- 6. a .via round trip: a new Session from the workspace renders
+        # the same pixels. The camera is one that %f text and the
+        # orientation quaternion carry exactly: integer eye and centre, the
+        # identity orientation, a 0.75 rad field of view
+        s.recenter(None)
+        c = np.round(np.asarray(s.camera.center, np.float64))
+        dist = float(np.round(np.linalg.norm(np.asarray(s.camera.eye, np.float64) - c)))
+        s.camera = Camera(eye=(c + [0.0, 0.0, dist]).astype(np.float32), center=c.astype(np.float32),
+                          up=np.array([0.0, 1.0, 0.0], np.float32), fovy=0.75)
+        s.save_workspace(via)
+        proc = None
+        if cli:  # -- 7. the CLI, in a process of its own, meanwhile
+            png = str(work / "demo.png")
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "viamd_tpu_torch.app.cli", "render", "demo", "-o", png,
+                 "--width", str(width), "--height", str(height), "--postprocess"],
+                cwd=str(Path(__file__).resolve().parent), stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True,
+            )
+        t1 = time.perf_counter()
+        s2 = Session(device=dev)
+        try:
+            s2.load_workspace(via)
+            t_via = time.perf_counter() - t1
+            s2.stage_to_device()
+            a2 = s2.render(width, height)
+            a1 = s.render(width, height, show_selection=False)
+            if s2.frame != 0.5 or not all(torch.equal(p, q) for p, q in zip(a1, a2)):
+                raise AssertionError("the .via round trip renders other pixels")
+        finally:
+            s2.shutdown()
+        cli_msg = "not run"
+        if proc is not None:
+            out_txt = proc.communicate(timeout=600)[0]
+            if proc.returncode != 0 or open(png, "rb").read(8) != b"\x89PNG\r\n\x1a\n":
+                raise AssertionError(f"the CLI exited {proc.returncode}: {out_txt[-2000:]}")
+            cli_msg = f"exit 0, {os.path.getsize(png) / 2**20:.1f} MiB PNG"
+        # -- 8. the viewer on an ephemeral port
+        import urllib.request
+
+        srv = ViewerServer(s, host="127.0.0.1", port=0).serve(blocking=False)
+        try:
+            base = f"http://127.0.0.1:{srv.httpd.server_address[1]}"
+            state = json.loads(urllib.request.urlopen(base + "/api/state", timeout=120).read())
+            t1 = time.perf_counter()
+            body = urllib.request.urlopen(base + f"/render?w={width}&h={height}", timeout=300).read()
+            view_ms = (time.perf_counter() - t1) * 1e3
+            eye0 = np.array(s.camera.eye)
+            req = urllib.request.Request(base + "/api/orbit",
+                                         data=json.dumps({"dx": 0.1, "dy": 0.0}).encode())
+            orbit = json.loads(urllib.request.urlopen(req, timeout=120).read())
+            if (state["natoms"] != sys_.natoms or body[:8] != b"\x89PNG\r\n\x1a\n" or orbit != {}
+                    or np.allclose(eye0, s.camera.eye)):
+                raise AssertionError(("viewer", state.get("natoms"), body[:8], orbit))
+        finally:
+            srv.close()
+    finally:
+        s.shutdown()
+    # -- 9. the protein and QM views through a Session: the demo's cartoon
+    # (triangles.cu) and an orbital composited in-scene (gto.cu → volume.cu)
+    d = Session(device=dev)
+    try:
+        d.load_demo(n_res=demo_res)
+        d.evaluate().force()
+        d.representations[0].type = "cartoon"
+        d.representations[0].color_mapping = "secondary_structure"
+        _, qm = qm_molecule(qm_res)
+        vlx = d.components["veloxchem"]
+        vlx.load(qm)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        vol = vlx.orbital_scene_volume(dims=48)
+        cart = d.render(width, height, volume=vol, postprocess=True)[0]
+        torch.cuda.synchronize()
+        protein_ms = (time.perf_counter() - t1) * 1e3
+        if not bool(torch.isfinite(cart).all()):
+            raise AssertionError("the cartoon + orbital frame is not finite")
+    finally:
+        d.shutdown()
+    launches = read_launches()
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"the Session phase launched no {missing}")
+    st = " | ".join(f"{k} {v[0]:.3f} / {v[1]:.3f}" for k, v in stages.items())
+    phase("session", t0, (
+        f"{sys_.natoms} atoms x {n_frames} frames from files: wrote .gro + .vtraj "
+        f"{t_write:.2f} s; Session.load .gro {t_gro:.2f} s, .vtraj + stage_to_device "
+        f"{t_stage:.2f} s; set_script {t_compile:.2f} s"
+    ))
+    phase("session", t0, (
+        f"Session.evaluate frames/s {' '.join(f'{f:.1f}' for f in runs)} (best "
+        f"{max(runs):.1f}; [main]'s Evaluator best {main_fps:.1f}); r, v, lin, plan, iso equal "
+        f"to compile_script + Evaluator (chunk {CHUNK}) on the loaded box bit for bit, r, "
+        f"lin, plan, iso equal to [main]'s, v within {v_rel:.3g} of [main]'s largest voxel "
+        f"(its reference structures from the .gro's 0.001 nm coordinates)"
+    ))
+    phase("session", t0, (
+        f"render {width}x{height} frame 0 spacefill raw: rgba, depth, picks equal to "
+        f"render_molecules; composed frame (outline of {SESSION_OUTLINE}, in-scene v, "
+        f"postprocess) ms, host clock to a synchronize: "
+        f"{' / '.join(f'{t:.3f}' for t in composed)} (best {min(composed):.3f}); by stage, "
+        f"events / host ms, each fenced: {st}; sync points in render: {len(syncs)}"
+        + (f" ({'; '.join(syncs[:6])})" if syncs else "")
+    ))
+    phase("session", t0, (
+        f"render_frames(range({n_taa}), taa=True) {taa_ms:.3f} ms/frame; recenter "
+        f"resname('SOL') at frame 0.5: two current_coords() equal bit for bit, "
+        f"{rec_ms:.3f} ms by events; a float index_add_ segment sum of the same frame, 4 "
+        f"runs: {atomic_differ} of 3 differ from the first"
+    ))
+    phase("session", t0, (
+        f".via round trip (save, a new Session's load_workspace {t_via:.2f} s): the same "
+        f"pixels; CLI render demo {width}x{height} --postprocess: {cli_msg}; viewer on "
+        f"127.0.0.1: /api/state natoms {state['natoms']}, /render {view_ms:.1f} ms "
+        f"({len(body) / 2**20:.1f} MiB PNG), /api/orbit moved the camera"
+    ))
+    phase("session", t0, (
+        f"demo ({demo_res} residues) cartoon + orbital (qm_molecule({qm_res}), 48^3) "
+        f"in-scene + postprocess {protein_ms:.1f} ms; launches by the Session and its "
+        f"components (the reference runs not counted) "
+        + ", ".join(f"{k} {v}" for k, v in launches.items())
+    ))
+    return {"launches": launches}
+
+
 def main() -> None:
     # -- 1. device ---------------------------------------------------------
     t0 = time.perf_counter()
@@ -2880,10 +3208,9 @@ def main() -> None:
 
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    cuda_build.build(dict([cuda_rdf.LIBRARY, cuda_raster.LIBRARY, cuda_volume.LIBRARY,
-                           cuda_triangles.LIBRARY, cuda_gto.LIBRARY]))
+    cuda_build.build(dict(mod.LIBRARY for mod in KERNEL_MODULES))
     lines = []
-    for mod in (cuda_rdf, cuda_raster, cuda_volume, cuda_triangles, cuda_gto):
+    for mod in KERNEL_MODULES:
         secs = mod.load_kernel()
         name = mod.LIBRARY[0]
         ptxas = [
@@ -3250,6 +3577,9 @@ def main() -> None:
     qm = qm_phase(dev)
     density_volume_phase(dev, sys_, compiled, res, traj)
 
+    # -- 21. the app layer: Session, the .via workspace, the CLI, the viewer
+    session = session_phase(dev, sys_, traj, res, max(fps["fixed"]))["launches"]
+
     print(json.dumps({"kernels": [
         {
             "name": "pair_hist",
@@ -3258,6 +3588,7 @@ def main() -> None:
             "replaces": "viamd_tpu/ops/pallas_rdf.py:58",
             "launches": launches,
             "launches_io": io["launches"],
+            "launches_session": session["pair_hist"],
             "max_abs_err": err_same,
             "ms": ms_kernel,
             "plain_ms": ms_plain,
@@ -3297,6 +3628,7 @@ def main() -> None:
             "source": "viamd_tpu_torch/csrc/raster.cu",
             "replaces": "viamd_tpu/render/pallas_raster.py:58",
             "launches": raster_launches,
+            "launches_session": session["raster"],
             "max_abs_err": max(raster[r]["max_abs_err"] for r in REPS),
             "ms": raster["spacefill"]["ms"],
             "plain_ms": raster["spacefill"]["plain_ms"],
@@ -3311,6 +3643,7 @@ def main() -> None:
             "source": "viamd_tpu_torch/csrc/volume.cu",
             "replaces": "viamd_tpu/render/volume.py:263",
             "launches": vol["launches"],
+            "launches_session": session["volume"],
             "max_abs_err": vol["max_abs_err"],
             "ms": vol["ms"],
             "plain_ms": vol["plain_ms"],
@@ -3326,6 +3659,7 @@ def main() -> None:
             "source": "viamd_tpu_torch/csrc/triangles.cu",
             "replaces": "viamd_tpu/render/triangles.py:30",
             "launches": cartoon["launches"],
+            "launches_session": session["triangles"],
             "max_abs_err": cartoon["max_abs_err"],
             "ms": cartoon["ms"],
             "plain_ms": cartoon["plain_ms"],
@@ -3341,6 +3675,7 @@ def main() -> None:
             "source": "viamd_tpu_torch/csrc/gto.cu",
             "replaces": "viamd_tpu/ops/gto.py:40",
             "launches": qm["launches"],
+            "launches_session": session["gto"],
             "max_abs_err": qm["max_abs_err"],
             "ms": qm["ms"],
             "plain_ms": qm["plain_ms"],

@@ -16,6 +16,9 @@ names = [m.name for m in pkgutil.walk_packages(
     viamd_tpu_torch.__path__, "viamd_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+# the app layer imports and serves without them too
+from viamd_tpu_torch.app import Session, cli, viewer, workspace
+assert cli.build_parser().parse_args(["info", "x.pdb"]).device == "cuda"
 # the Ramachandran reference tables come from the port's own copy
 from viamd_tpu_torch.components.ramachandran import reference_density
 assert reference_density("glycine").shape == (180, 180)
@@ -36,7 +39,8 @@ for mod in ("ops.cuda_rdf", "render.camera", "render.color", "render.cuda_raster
             "render.font", "render.overlay", "components", "components.ramachandran",
             "components.shapespace", "components.veloxchem", "components.density_volume",
             "components.dataset", "core.vlog", "io.basis", "io.vlx", "ops.gto", "ops.topo",
-            "app.export", "interop"):
+            "app.export", "interop", "app", "app.session", "app.cli", "app.viewer",
+            "app.workspace", "core.tracing", "core.selection_utils", "ops.interpolate"):
     assert "viamd_tpu_torch." + mod in names, (mod, names)
 assert not bad, bad
 """

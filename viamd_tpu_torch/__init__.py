@@ -12,9 +12,10 @@ copies built by `native.py`.
 
 Covered so far: file loading (`io.load_file`), the script language
 (`script.compile_script`), evaluation over staged or streamed
-trajectories with checkpoints (`eval.Evaluator`), and the molecule render
-path (`render.raster`, `render.postprocess`), each on an explicit torch
-device.
+trajectories with checkpoints (`eval.Evaluator`), the render paths
+(`render/`), the components, and the app layer over them
+(`app.Session`, the `.via` workspace, the CLI and the browser viewer),
+each on an explicit torch device.
 """
 
 from viamd_tpu_torch.core.bitfield import Bitfield

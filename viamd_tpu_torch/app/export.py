@@ -4,8 +4,9 @@ volumes, structure subsets, images — port of viamd_tpu/app/export.py.
 Host code over the port's EvalResult and System: the cube, MetaImage and
 structure writers are the JAX package's, byte for byte; the distribution
 resampling runs ops/histogram.py::resample_histogram on the CPU; the
-structure filter is evaluated on `device`. PIL is imported by the image
-functions only.
+structure filter is evaluated on `device`. PNGs are written by
+`encode_png` with the standard library; PIL is imported only to write
+JPG/BMP/TGA and to read images.
 
 Rebuild of the reference's export surface: export_xvg/export_csv
 (VIAMD src/main.cpp:5628,5677), export_cube (:5706-5820), the
@@ -278,11 +279,56 @@ def export_structure(
 # -- images (create_screenshot, main.cpp:6399) -------------------------------
 
 
+def encode_png(arr: np.ndarray) -> bytes:
+    """(H, W, 3|4) uint8 → an 8-bit RGB/RGBA PNG, with the standard library
+    only, byte for byte what PIL's default PNG writer gives (and so the JAX
+    package's `save_image`): each row takes the first of the None, Up, Sub
+    and Paeth filters with the least sum of |signed byte|; one deflate
+    stream (level 6, memLevel 9, Z_FILTERED) split into IDAT chunks of
+    max(65536, 4W) bytes."""
+    import struct
+    import zlib
+
+    arr = np.ascontiguousarray(arr, np.uint8)
+    h, w, c = arr.shape
+    x = arr.reshape(h, w * c).astype(np.int16)
+    up = np.concatenate([np.zeros((1, w * c), np.int16), x[:-1]])
+    left = np.concatenate([np.zeros((h, c), np.int16), x[:, :-c]], axis=1)
+    up_left = np.concatenate([np.zeros((h, c), np.int16), up[:, :-c]], axis=1)
+    p = left + up - up_left
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - up_left)
+    paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, up_left))
+    rows = x.astype(np.uint8)
+    kind = np.zeros(h, np.uint8)
+    cost = np.minimum(rows, 256 - rows.astype(np.int32)).sum(axis=1)
+    for code, pred in ((2, up), (1, left), (4, paeth)):
+        f = (x - pred).astype(np.uint8)
+        fc = np.minimum(f, 256 - f.astype(np.int32)).sum(axis=1)
+        take = fc < cost
+        rows[take], kind[take], cost = f[take], code, np.where(take, fc, cost)
+    deflate = zlib.compressobj(6, zlib.DEFLATED, 15, 9, zlib.Z_FILTERED)
+    z = deflate.compress(np.concatenate([kind[:, None], rows], axis=1).tobytes()) + deflate.flush()
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        crc = zlib.crc32(tag + data) & 0xFFFFFFFF
+        return struct.pack(">I", len(data)) + tag + data + struct.pack(">I", crc)
+
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 6 if c == 4 else 2, 0, 0, 0)
+    step = max(65536, 4 * w)
+    idat = b"".join(chunk(b"IDAT", z[i:i + step]) for i in range(0, len(z), step))
+    return b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr) + idat + chunk(b"IEND", b"")
+
+
 def save_image(path: str, rgba: np.ndarray):
-    """(H,W,4|3) float [0,1] → PNG/JPG/BMP/TGA via PIL."""
+    """(H,W,4|3) float [0,1] → PNG (by `encode_png`, no imaging library) or
+    JPG/BMP/TGA via PIL; the JAX package's bytes either way."""
+    arr = np.clip(np.asarray(rgba) * 255 + 0.5, 0, 255).astype(np.uint8)
+    if path.lower().endswith(".png"):
+        with open(path, "wb") as f:
+            f.write(encode_png(arr))
+        return
     from PIL import Image
 
-    arr = np.clip(np.asarray(rgba) * 255 + 0.5, 0, 255).astype(np.uint8)
     img = Image.fromarray(arr, "RGBA" if arr.shape[-1] == 4 else "RGB")
     if path.lower().endswith((".jpg", ".jpeg", ".bmp")):
         img = img.convert("RGB")

@@ -15,6 +15,7 @@ import math
 
 import torch
 
+from viamd_tpu_torch.ops.density import scaled_fixed_point_sum
 from viamd_tpu_torch.ops.pbc import _pbc_mask, cellmul
 
 
@@ -58,18 +59,26 @@ def com_segments(
     inv_basis: torch.Tensor,
 ) -> torch.Tensor:
     """Per-segment PBC-aware COM: segment_ids (n,) in [0, num_segments)
-    → (num_segments, 3). Segment sums by `index_add_`."""
+    → (num_segments, 3). The same bits for any order of the atoms, on the
+    CPU and on the card: each of the four segment sums (w, x·w, cos·w,
+    sin·w) runs in fixed point (`density.scaled_fixed_point_sum`: the terms
+    scaled by one power of two into (−1, 1), added exactly in int64, the
+    sum rounded to float32 once), where a float `index_add_` adds in
+    thread order on CUDA."""
+    seg = segment_ids.to(torch.int64)
+    cols = torch.arange(3, dtype=torch.int64, device=x.device)
+    flat3 = (seg[:, None] * 3 + cols).reshape(-1)
 
-    def seg_sum(v):
-        out = torch.zeros((num_segments, *v.shape[1:]), dtype=v.dtype, device=v.device)
-        return out.index_add_(0, segment_ids, v)
+    def seg_sum3(v):  # (n, 3) → (num_segments, 3)
+        return scaled_fixed_point_sum(3 * num_segments, flat3, v.reshape(-1)).reshape(
+            num_segments, 3)
 
     w = weights.to(x.dtype)
-    wsum = seg_sum(w).clamp_min(1e-30)[:, None]
-    mean = seg_sum(x * w[:, None]) / wsum
+    wsum = scaled_fixed_point_sum(num_segments, seg, w).clamp_min(1e-30)[:, None]
+    mean = seg_sum3(x * w[:, None]) / wsum
     theta = cellmul(x, inv_basis) * (2.0 * math.pi)
-    c = seg_sum(torch.cos(theta) * w[:, None]) / wsum
-    s = seg_sum(torch.sin(theta) * w[:, None]) / wsum
+    c = seg_sum3(torch.cos(theta) * w[:, None]) / wsum
+    s = seg_sum3(torch.sin(theta) * w[:, None]) / wsum
     frac = torch.atan2(-s, -c) / (2.0 * math.pi) + 0.5
     m = _pbc_mask(basis)
     return cellmul(frac, basis) * m + mean * (1.0 - m)
