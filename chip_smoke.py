@@ -15,8 +15,9 @@ centre + (0, 0, 1.6·box), perspective(45°, 16/9, 1, 500), CPK colours, in
 spacefill and in licorice (133,336 bond half-capsules) — through
 render.raster.render_molecules → render.postprocess.execute (HBAO, ACES,
 compose, FXAA 3.11). Then the volume view (phase 16), the protein views
-(17–18), the VeloxChem and SDF windows (19–20). Phases, one result line
-each (several for 16–20):
+(17–18), the VeloxChem and SDF windows (19–20), the app layer (21) and
+multi-device evaluation with ranks sharing the card (22). Phases, one
+result line each (several for 16–22):
 
 1. the device (fails without CUDA; nothing falls back to the CPU);
 2. the build of the hand-written CUDA kernels from csrc/ (one nvcc per
@@ -184,7 +185,27 @@ each (several for 16–20):
    `render demo --postprocess` in a process of its own, the viewer on
    127.0.0.1 (/api/state, /render at full width, /api/orbit), and the
    demo's cartoon with an orbital composited in-scene; launch counts of
-   all five kernels set to 0 before and read after.
+   all five kernels set to 0 before and read after;
+22. `[multi]`: multi-device evaluation (viamd_tpu_torch.parallel) with 4
+   ranks — processes started by parallel.launch.spawn — sharing the card
+   over gloo (NCCL refuses two ranks on one device); an exclusive compute
+   mode fails the phase. pair_hist's slab-sharded mode: the headline O–O
+   grid (10×10×10), the rhombic dodecahedron's (fractional) and the
+   radius-2 grid (5×5×5), their cell rows split over 2 and 4 ranks
+   (pair_dist_histogram_cl_sharded: the kernel on each rank's rows, the
+   int32 partials summed): every rank's partial equal to the plain walk of
+   its rows, every summed histogram equal to the one-rank kernel bit for
+   bit, each rank's device time (alone on the card, behind a queued
+   sleep) against the bound of its rows' work, the all_reduce's host
+   time. Then the headline script frames-sharded on 2 ranks over all 384
+   frames against [main]'s one-rank result (temporal rows bit-equal,
+   accumulators within the float32 reassociation bound n·2⁻²⁴ relative and
+   equal where a bin stays a whole count below 2²⁴), and dp × tp on a 2 × 2
+   mesh (compile_script(atom_shard=("atoms", 2)), frames 0–127) against
+   one rank over the same frames: frames/s with the ranks sharing one card
+   (no speed-up can show), the ranks' own launch counts set to 0 before
+   and read after, host waits a frame. Then the dry run,
+   parallel.dryrun.dryrun_multichip(4), and its six "ok" lines.
 
 Ends with a JSON line of kernel results, the `nvidia-smi` name/power-limit
 line, and the JSON status line. Any failure raises (non-zero exit).
@@ -281,6 +302,7 @@ from viamd_tpu_torch.components import (
 from viamd_tpu_torch.io.vlx import BOHR_PER_ANGSTROM, ExcitedStates, QMData, shells_from_label
 from viamd_tpu_torch.ops import cuda_gto, gto
 from viamd_tpu_torch.ops.topo import bond_graph, critical_points
+from viamd_tpu_torch.parallel import dryrun, launch
 from viamd_tpu_torch.render import volume as vol_mod
 
 HEADLINE = (
@@ -3190,6 +3212,287 @@ def _session_phase(dev, sys_, traj, res, main_fps, n_taa, width, height, cli, de
     return {"launches": launches}
 
 
+# [multi] (phase 22): multi-device evaluation with ranks sharing the card.
+# The headline frames-sharded run takes all 384 frames on 2 ranks; dp × tp
+# takes the first MULTI_TP_FRAMES on a 2 × 2 mesh: four processes share
+# the card and the host's cores there, and every frame's RDF waits for a
+# gloo sum on the host, so 128 frames keep the phase near 90 s.
+MULTI_RANKS, MULTI_TP_FRAMES = 4, 128
+
+
+def compute_mode() -> str:
+    """The card's compute mode; an exclusive mode admits one process, and
+    ranks that share the card cannot run under it."""
+    mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    if "exclusive" in mode.lower():
+        raise AssertionError(f"compute mode {mode}: {MULTI_RANKS} ranks cannot share the card")
+    return mode
+
+
+def one_at_a_time(fn, world: int):
+    """fn() on each rank in turn, the others waiting at a barrier, so that a
+    rank's timing has the card to itself → this rank's result."""
+    import torch.distributed as dist
+
+    out = None
+    for r in range(world):
+        if r == dist.get_rank():
+            out = fn()
+        dist.barrier()
+    return out
+
+
+def multi_rank(cases, n_waters: int, n_frames: int, tp_frames: int, chunk: int) -> dict:
+    """What each rank of `[multi]` runs (the world is MULTI_RANKS ranks on
+    one device type). → numpy results, times and counts of this rank:
+    - "slabs": for each case (name, x, idx, basis, r_max, dims, fractional,
+      radius; A against itself) and split 2 and world, this rank's rows,
+      its kernel partial on them (pair_hist_cells(rows=)), its device time
+      (alone on the card), and the histogram summed over the split
+      (pair_dist_histogram_cl_sharded);
+    - "all_reduce_ms": a 128-bin int32 sum over the world's atoms axis;
+    - "frames": ranks 0-1 (a 2-rank frames mesh): the headline script over
+      water_box_device(n_waters, n_frames), host seconds of one timed run
+      after a warm-up chunk, its launches and results;
+    - "tp": every rank (2 × 2, atom_shard=("atoms", 2)): frames
+      0..tp_frames−1, seconds, launches, host waits for the device, frames
+      this rank evaluated, results."""
+    import torch.distributed as dist
+
+    from viamd_tpu_torch.parallel.mesh import frames_mesh
+
+    world = dist.get_world_size()
+    mesh_all = frames_mesh()
+    dev = mesh_all.device
+    on_card = dev.type == "cuda"
+    # the kernel on the card; its plain walk where a CPU rehearsal runs this
+    walk = cuda_rdf.pair_hist_cells if on_card else cuda_rdf.pair_hist_cells_plain
+    out = {"rank": mesh_all.rank, "device": str(dev), "backend": mesh_all.backend, "slabs": {}}
+    for name, x, idx, basis, r_max, dims, frac, radius in cases:
+        xt = torch.as_tensor(x, device=dev)
+        b = torch.as_tensor(basis, device=dev)
+        inv = inv_basis_of(b)
+        ia = torch.as_tensor(idx, device=dev)
+        a = cuda_rdf.cell_lists(xt, ia, b, inv, dims, frac)
+        args = (*a, *a, b, inv, dims, NBINS, r_max, True, radius)
+        for atoms in (2, world):
+            mesh = frames_mesh(atoms=atoms)
+            rows = cuda_rdf.slab_rows(mesh.axis_index("atoms"), atoms, dims[0])
+            part = walk(*args, rows=rows)
+            summed = cuda_rdf.pair_dist_histogram_cl_sharded(
+                xt, ia, ia, b, inv, NBINS, r_max, dims, mesh, fractional=frac, radius=radius)
+            ms = one_at_a_time(lambda: cuda_ms(lambda: walk(*args, rows=rows), queued=True)
+                               if on_card else None, world)
+            out["slabs"][(name, atoms)] = dict(rows=rows, part=part.cpu().numpy(),
+                                               summed=summed.cpu().numpy(), ms=ms)
+    mesh4 = frames_mesh(atoms=world)
+    t = torch.zeros(NBINS, dtype=torch.int32, device=dev)
+    out["all_reduce_ms"] = host_ms(lambda: mesh4.all_reduce(t, "atoms")) if on_card else None
+
+    sys_, traj = water_box_device(n_waters, n_frames=n_frames, seed=SEED, device=dev)
+    mesh2 = frames_mesh(2)  # ranks 2.. sit this one out
+    if mesh2 is not None:
+        ev = Evaluator(compile_script(HEADLINE, sys_, dev), traj, chunk=chunk, mesh=mesh2)
+        ev.run(range(chunk)).force()  # warm-up
+        dist.barrier(mesh2.groups[None])
+        cuda_rdf.launches = 0
+        t1 = time.perf_counter()
+        res = ev.run()
+        res.force()
+        out["frames"] = dict(seconds=time.perf_counter() - t1, launches=cuda_rdf.launches,
+                             temporal=res.temporal, r=res.distributions["r"],
+                             v=res.volumes["v"], n=res.n_frames_done)
+    dist.barrier()
+
+    mesh22 = frames_mesh(atoms=2)
+    compiled_tp = compile_script(HEADLINE, sys_, dev, atom_shard=("atoms", 2))
+    ev_tp = Evaluator(compiled_tp, traj, chunk=chunk, mesh=mesh22)
+    ev_tp.run(range(mesh22.size)).force()  # warm-up
+    dist.barrier()
+    waits0 = mesh22.host_waits
+    block = ev_tp.block
+    mine = [f for f in range(tp_frames)
+            if (f % ev_tp.chunk) // block == mesh22.axis_index("frames")]
+    cuda_rdf.launches = 0
+    t1 = time.perf_counter()
+    res_tp = ev_tp.run(range(tp_frames))
+    res_tp.force()
+    out["tp"] = dict(seconds=time.perf_counter() - t1, launches=cuda_rdf.launches,
+                     host_waits=mesh22.host_waits - waits0, frames=len(mine),
+                     routes=ev_tp.script.routes, temporal=res_tp.temporal,
+                     r=res_tp.distributions["r"], v=res_tp.volumes["v"],
+                     n=res_tp.n_frames_done)
+    return out
+
+
+def within_reassociation(got: np.ndarray, want: np.ndarray, n_frames: int) -> float:
+    """Raises unless an accumulator of float32 frame sums taken in another
+    order is within n_frames · 2⁻²⁴ of `want` relative, per element (its
+    terms are not negative), and equal wherever `want` is below 2²⁴ and
+    whole (counts, summed exactly); → the largest relative difference."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if (want < 0).any():
+        raise AssertionError("the reassociation bound needs terms that are not negative")
+    diff = np.abs(got - want)
+    if (diff > n_frames * 2.0**-24 * want).any():
+        raise AssertionError(f"sums differ beyond {n_frames}·2^-24 relative: max "
+                             f"{float(diff.max())}")
+    exact = (want < 2**24) & (want == np.round(want))
+    if (diff[exact] != 0).any():
+        raise AssertionError("whole counts below 2^24 differ")
+    return float((diff / np.maximum(want, 1e-30)).max())
+
+
+def multi_phase(dev, sys_, traj, res, tri, n_waters: int = N_WATERS,
+                n_frames: int = N_FRAMES, tp_frames: int = MULTI_TP_FRAMES,
+                chunk: int = CHUNK, r2_cutoff: float = R2_CUTOFF,
+                r2_dims: tuple = R2_DIMS) -> dict:
+    """[multi] (phase 22): the sharded paths with MULTI_RANKS ranks sharing
+    the card (gloo: NCCL refuses two ranks on one device). `sys_`, `traj`,
+    `res`: `[main]`'s box and its one-rank result over all frames; `tri`:
+    `[kernel-tri]`'s. → the slab kernel's numbers and the sharded runs'
+    launches."""
+    t0 = time.perf_counter()
+    mode = compute_mode() if dev.type == "cuda" else "(no card)"
+    x0, basis = traj.device_frame(0)
+    idx_o = np.nonzero(sys_.element == 8)[0].astype(np.int32)
+    dims = choose_grid_r(sys_.cell.extent(), R_MAX, idx_o.size, radius=1)[0]
+    xt, bt = tri["traj"].device_frame(0)
+    np_ = lambda t: t.cpu().numpy()  # noqa: E731
+    cases = [
+        ("headline", np_(x0), idx_o, np_(basis), R_MAX, tuple(dims), False, 1),
+        ("triclinic", np_(xt), idx_o, np_(bt), R_MAX, tuple(tri["dims"]), True, 1),
+        ("radius-2", np_(x0), idx_o, np_(basis), r2_cutoff, tuple(r2_dims), False, 2),
+    ]
+    t_spawn = time.perf_counter()
+    ranks = launch.spawn(multi_rank, MULTI_RANKS, dev.type, cases, n_waters, n_frames,
+                         tp_frames, chunk, timeout=600)
+    t_ranks = time.perf_counter() - t_spawn
+    # the slab kernel: each rank's partial against the plain walk of its
+    # rows, the summed histograms against the one-rank kernel, bit for bit
+    slab_lines, per_rank, err_multi = [], {}, 0.0
+    for name, x, idx, b, r_max, dims_c, frac, radius in cases:
+        xd, bd = torch.as_tensor(x, device=dev), torch.as_tensor(b, device=dev)
+        inv = inv_basis_of(bd)
+        a = cuda_rdf.cell_lists(xd, torch.as_tensor(idx, device=dev), bd, inv, dims_c, frac)
+        args = (*a, *a, bd, inv, dims_c, NBINS, r_max, True, radius)
+        with uncounted():
+            one = (cuda_rdf.pair_hist_cells(*args) if dev.type == "cuda"
+                   else cuda_rdf.pair_hist_cells_plain(*args)).cpu().numpy()
+        nbytes = sum(t.numel() * 4 for t in a) + 72 + NBINS * 4
+        ops_pair = OPS_PAIR_TRI if frac else OPS_PAIR
+        for atoms in (2, MULTI_RANKS):
+            got = [r["slabs"][(name, atoms)] for r in ranks]
+            rows = sorted({g["rows"] for g in got})
+            plains = {}
+            for rw in rows:
+                work = {}
+                plains[rw] = (cuda_rdf.pair_hist_cells_plain(*args, work=work, rows=rw)
+                              .cpu().numpy(), work)
+            for g in got:
+                err_multi = max(err_multi, float(np.abs(g["part"] - plains[g["rows"]][0]).max()))
+                if not np.array_equal(g["part"], plains[g["rows"]][0]):
+                    raise AssertionError(f"{name}, rows {g['rows']}: the kernel's partial "
+                                         "differs from the plain walk of its rows")
+                if not np.array_equal(g["summed"], one):
+                    raise AssertionError(f"{name}, {atoms} ranks: the summed histogram "
+                                         "differs from the one-rank kernel")
+            if not np.array_equal(sum(p for p, _ in plains.values()), one):
+                raise AssertionError(f"{name}: the rows do not partition the grid")
+            shares = []
+            for g in got[:atoms]:  # one atoms line
+                p, work = plains[g["rows"]]
+                bms, bby = bound(work["pairs"] * ops_pair + float(p.sum()) / 2 * OPS_PAIR_HIT,
+                                 nbytes)
+                shares.append((g["rows"], g["ms"], bms, bby, work["pairs"]))
+            per_rank[(name, atoms)] = shares
+            slab_lines.append(
+                f"{name} dims={dims_c} over {atoms}: " + ", ".join(
+                    f"rows {lo}-{hi}: {pairs} candidates, "
+                    + (f"{ms:.4f} ms (device, queued) vs its bound {bms:.4f} ms "
+                       f"({bms / ms * 100:.1f}%)" if ms else f"bound {bms:.4f} ms")
+                    for (lo, hi), ms, bms, _, pairs in shares))
+    # the frames-sharded headline against [main]'s one-rank Evaluator
+    fr = [r["frames"] for r in ranks if "frames" in r]
+    if len(fr) != 2 or any(f["n"] != n_frames for f in fr):
+        raise AssertionError(f"the 2-rank headline run: {[f['n'] for f in fr]}")
+    same = lambda a, b: all(a[k].tobytes() == b[k].tobytes() for k in ("r", "v"))  # noqa: E731
+    if not same(fr[0], fr[1]) or not all(same(t["tp"], ranks[0]["tp"]) for t in ranks):
+        raise AssertionError("the ranks of a sharded run returned different results")
+    rel = {}
+    for f in fr:
+        for k, v in res.temporal.items():
+            if f["temporal"][k].tobytes() != v.tobytes():
+                raise AssertionError(f"frames-sharded temporal {k} differs from one rank's")
+        rel["r"] = within_reassociation(f["r"], res.distributions["r"], n_frames)
+        rel["v"] = within_reassociation(f["v"], res.volumes["v"], n_frames)
+    on_card = dev.type == "cuda"  # a CPU rehearsal launches no kernel
+    if on_card and min(f["launches"] for f in fr) < n_frames // 2:
+        raise AssertionError(f"frames-sharded launches {[f['launches'] for f in fr]}")
+    # dp × tp against one rank over the same frames
+    with uncounted():
+        one_tp = Evaluator(compile_script(HEADLINE, sys_, dev), traj, chunk=chunk).run(
+            range(tp_frames))
+    tp = [r["tp"] for r in ranks]
+    for t in tp:
+        if t["routes"] != ["rdf:cell_list", "sdf:pairs"] or t["n"] != tp_frames:
+            raise AssertionError((t["routes"], t["n"]))
+        for k, v in one_tp.temporal.items():
+            if t["temporal"][k].tobytes() != v.tobytes():
+                raise AssertionError(f"dp×tp temporal {k} differs from one rank's")
+        rel["tp_r"] = within_reassociation(t["r"], one_tp.distributions["r"], tp_frames)
+        rel["tp_v"] = within_reassociation(t["v"], one_tp.volumes["v"], tp_frames)
+        if t["frames"] == 0 or (on_card and t["launches"] < t["frames"]):
+            raise AssertionError(f"dp×tp: a rank launched {t['launches']} times for "
+                                 f"{t['frames']} frames")
+    launches_frames = sum(f["launches"] for f in fr)
+    launches_tp = sum(t["launches"] for t in tp)
+    fps_frames = n_frames / max(f["seconds"] for f in fr)
+    fps_tp = tp_frames / max(t["seconds"] for t in tp)
+    waits = [t["host_waits"] / t["frames"] for t in tp]
+    t_dry = time.perf_counter()
+    dry = dryrun.dryrun_multichip(MULTI_RANKS, dev.type)
+    if len(dry) != 6:
+        raise AssertionError(f"the dry run printed {len(dry)} ok lines")
+    t_dry = time.perf_counter() - t_dry
+    head = per_rank[("headline", MULTI_RANKS)]
+    slowest = max(head, key=lambda s: s[1] or 0.0)
+    # the plain walk of the slowest rank's rows, on the parent's device
+    x0_o = cuda_rdf.cell_lists(x0, torch.as_tensor(idx_o, device=dev), basis,
+                               inv_basis_of(basis), tuple(dims))
+    head_args = (*x0_o, *x0_o, basis, inv_basis_of(basis), tuple(dims), NBINS, R_MAX, True)
+    plain_ms = cuda_ms(lambda: cuda_rdf.pair_hist_cells_plain(*head_args, rows=slowest[0]),
+                       reps=3, warmup=1)
+    phase("multi", t0, (
+        f"compute mode {mode}; {MULTI_RANKS} ranks sharing one card ({ranks[0]['device']}), "
+        f"backend {ranks[0]['backend']}; the ranks' launch and work {t_ranks:.1f} s; "
+        + " | ".join(slab_lines) + "; every rank's partial equal to the plain walk of its "
+        "rows, every summed histogram (2 and 4 ranks) equal to the one-rank kernel bit "
+        f"for bit; the slowest rank's rows {slowest[0]} plain {plain_ms:.4f} ms; a 128-bin "
+        f"int32 all_reduce over 4 ranks {ranks[0]['all_reduce_ms'] or float('nan'):.4f} ms "
+        "(host clock; gloo stages CUDA tensors through the host)"
+    ))
+    phase("multi", t0, (
+        f"headline script frames-sharded, 2 ranks sharing one card, {n_frames} frames: "
+        f"{fps_frames:.1f} frames/s (ranks sharing one card: no speed-up is measurable), "
+        f"launches {[f['launches'] for f in fr]}; temporal rows bit-equal to [main]'s "
+        f"one-rank run, r within {rel['r']:.3g} and v within {rel['v']:.3g} relative "
+        f"(bound {n_frames}·2^-24 = {n_frames * 2.0**-24:.3g}) | dp×tp 2×2 with "
+        f"atom_shard=('atoms', 2), frames 0-{tp_frames - 1}: {fps_tp:.1f} frames/s (4 "
+        f"ranks sharing one card), launches {[t['launches'] for t in tp]}, host waits a "
+        f"frame {' '.join(f'{w:.3f}' for w in waits)} (the per-frame gloo sum of the RDF "
+        f"partials; the run's end adds its gathers and sums), temporal bit-equal, r within "
+        f"{rel['tp_r']:.3g}, v within {rel['tp_v']:.3g} relative of one rank's | dry run "
+        f"({MULTI_RANKS} ranks) {t_dry:.1f} s, {len(dry)} ok lines"
+    ))
+    return dict(launches=launches_frames + launches_tp, launches_frames=launches_frames,
+                launches_tp=launches_tp, ms=slowest[1], rows=slowest[0], bound_ms=slowest[2],
+                bound_by=slowest[3], plain_ms=plain_ms, err=err_multi)
+
+
 def main() -> None:
     # -- 1. device ---------------------------------------------------------
     t0 = time.perf_counter()
@@ -3580,6 +3883,9 @@ def main() -> None:
     # -- 21. the app layer: Session, the .via workspace, the CLI, the viewer
     session = session_phase(dev, sys_, traj, res, max(fps["fixed"]))["launches"]
 
+    # -- 22. multi-device evaluation, ranks sharing the card
+    multi = multi_phase(dev, sys_, traj, res, tri)
+
     print(json.dumps({"kernels": [
         {
             "name": "pair_hist",
@@ -3589,6 +3895,7 @@ def main() -> None:
             "launches": launches,
             "launches_io": io["launches"],
             "launches_session": session["pair_hist"],
+            "launches_multi": multi["launches"],
             "max_abs_err": err_same,
             "ms": ms_kernel,
             "plain_ms": ms_plain,
@@ -3620,6 +3927,20 @@ def main() -> None:
             "plain_ms": r2["plain_ms"],
             "bound_ms": r2["bound_ms"],
             "bound_by": r2["bound_by"],
+            "library_ms": None,
+        },
+        {
+            "name": "pair_hist (slab-sharded, 4 ranks sharing the card)",
+            "route": "cuda",
+            "source": "viamd_tpu_torch/csrc/pair_hist.cu",
+            "replaces": "viamd_tpu/ops/pallas_rdf.py:58",
+            "launches": multi["launches_tp"],
+            "max_abs_err": multi["err"],
+            "ms": multi["ms"],
+            "plain_ms": multi["plain_ms"],
+            "bound_ms": multi["bound_ms"],
+            "bound_by": multi["bound_by"],
+            "rows": list(multi["rows"]),
             "library_ms": None,
         },
         {

@@ -40,7 +40,9 @@ for mod in ("ops.cuda_rdf", "render.camera", "render.color", "render.cuda_raster
             "components.shapespace", "components.veloxchem", "components.density_volume",
             "components.dataset", "core.vlog", "io.basis", "io.vlx", "ops.gto", "ops.topo",
             "app.export", "interop", "app", "app.session", "app.cli", "app.viewer",
-            "app.workspace", "core.tracing", "core.selection_utils", "ops.interpolate"):
+            "app.workspace", "core.tracing", "core.selection_utils", "ops.interpolate",
+            "parallel", "parallel.mesh", "parallel.launch", "parallel.programs",
+            "parallel.dryrun"):
     assert "viamd_tpu_torch." + mod in names, (mod, names)
 assert not bad, bad
 """

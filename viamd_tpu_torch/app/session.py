@@ -25,8 +25,7 @@ Differences from the JAX package, on purpose:
 - the in-scene volume is ray-marched at every size: the JAX package
   switches to shear-warp from 256² pixels on, which the port does not have;
 - the triangle raster's tile lists have no 64-slot cap (the JAX raster
-  drops a tile's candidates past 64);
-- `evaluate` takes no device mesh (multi-device evaluation is not ported).
+  drops a tile's candidates past 64).
 """
 
 from __future__ import annotations
@@ -513,6 +512,7 @@ class Session:
         self,
         frame_range=None,
         chunk: int = 16,
+        mesh=None,
         progress=None,
         interrupt=None,
         filtered: bool = False,
@@ -520,7 +520,10 @@ class Session:
         """Run the compiled script over the trajectory (the Eval Full /
         filtered-eval pair, main.cpp:981-1027) with the port's Evaluator:
         a staged trajectory is read where it lies, any other one streamed.
-        The result's tensors stay on the device until first read."""
+        The result's tensors stay on the device until first read. With a
+        device `mesh` (parallel.frames_mesh; the session's device is the
+        rank's), every rank of it calls this together and gets the same
+        result."""
         # recompile on ANY fingerprint change — text edits, but also a
         # newly loaded system or mutated stored selections (the reference
         # sets script.compile_ir on SystemInit, viamd.cpp:565): evaluating
@@ -541,7 +544,7 @@ class Session:
             if progress:
                 progress(f)
 
-        ev = Evaluator(self.compiled, traj, chunk=chunk)
+        ev = Evaluator(self.compiled, traj, chunk=chunk, mesh=mesh)
         res = ev.run(frame_range=frame_range, progress=prog, interrupt=interrupt)
         if filtered:
             self.filtered_result = res

@@ -253,9 +253,10 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
                      const float* __restrict__ basis,
                      const float* __restrict__ inv_basis, int dx, int dy,
                      int dz, int nbins, int symmetric, int radius,
-                     float r_max, float inv_bin, float s_hi,
+                     float r_max, float inv_bin, float s_hi, int row_lo,
                      int* __restrict__ hist) {
-  const int cell = blockIdx.x;
+  // the block's A cell: the window's cells follow row_lo's first (x-major)
+  const int cell = row_lo * dy * dz + blockIdx.x;
   const int a0 = a_start[cell];
   const int na = a_start[cell + 1] - a0;
   if (na == 0) return;  // uniform across the block
@@ -346,6 +347,13 @@ extern "C" int pair_hist_max_bins() { return kMaxBins; }
 // Launches on `stream`; adds into `hist` (nbins int32, zeroed by the
 // caller). `symmetric`: xb/idb/b_start are the A cell list itself (the half
 // stencil). `radius`: 1 or 2, with every dim at least 2·radius + 1.
+// [row_lo, row_hi): the window of the leading cell axis whose cells are A
+// cells (0, dx for the whole grid); B stays the whole cell list, read by
+// index. Each candidate pair belongs to exactly one A cell in both walks, so
+// the histograms of any partition of the rows sum to the whole grid's: a
+// device mesh splits the rows over the ranks of its atoms axis
+// (ops/cuda_rdf.py::pair_dist_histogram_cl_sharded, the counterpart of the
+// TPU kernel's slab-sharded mode, pallas_rdf.py::pair_dist_histogram_pl_sharded).
 // Returns cudaGetLastError() right after the launch, or an error without
 // launching.
 extern "C" int pair_hist_launch(const float* xa, const int* ida,
@@ -354,11 +362,12 @@ extern "C" int pair_hist_launch(const float* xa, const int* ida,
                                 const float* basis, const float* inv_basis,
                                 int dx, int dy, int dz, int nbins,
                                 float r_max, float inv_bin, float s_hi,
-                                int symmetric, int radius, int* hist,
-                                void* stream) {
+                                int symmetric, int radius, int row_lo,
+                                int row_hi, int* hist, void* stream) {
   const int w = 2 * radius + 1;
   if (nbins < 1 || nbins > kMaxBins || (symmetric && xb != xa) ||
-      radius < 1 || radius > kMaxRadius || dx < w || dy < w || dz < w)
+      radius < 1 || radius > kMaxRadius || dx < w || dy < w || dz < w ||
+      row_lo < 0 || row_hi > dx || row_lo >= row_hi)
     return (int)cudaErrorInvalidValue;
   const int smem_bytes = kWarps * 4 * nbins;
   // how many blocks the current device holds at once. Asked on every launch
@@ -377,12 +386,13 @@ extern "C" int pair_hist_launch(const float* xa, const int* ida,
         &per_sm, pair_hist_kernel, kThreads, smem_bytes);
   if (err != cudaSuccess) return (int)err;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const int ncells = dx * dy * dz;
+  // the window's cells: a slab of rows fills the card as the grid does
+  const int ncells = (row_hi - row_lo) * dy * dz;
   int parts = (kWaves * sms * per_sm + ncells - 1) / ncells;
   parts = parts < 1 ? 1 : (parts > kMaxParts ? kMaxParts : parts);
   const dim3 grid(ncells, parts);
   pair_hist_kernel<<<grid, kThreads, smem_bytes, (cudaStream_t)stream>>>(
       xa, ida, a_start, xb, idb, b_start, basis, inv_basis, dx, dy, dz, nbins,
-      symmetric, radius, r_max, inv_bin, s_hi, hist);
+      symmetric, radius, r_max, inv_bin, s_hi, row_lo, hist);
   return (int)cudaGetLastError();
 }

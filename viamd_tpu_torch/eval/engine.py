@@ -30,9 +30,20 @@ the two results merged (`merge_results`). `save_checkpoint` /
 `load_checkpoint` use the JAX package's `.npz` keys, so a checkpoint
 written by either package loads in the other.
 
+With a device mesh (`mesh=`, parallel/mesh.py), each rank of the frames
+axis evaluates its block of every chunk (the chunk a multiple of the mesh's
+ranks, as in the JAX package); the ranks of one atoms line evaluate the
+same frames, so a script compiled with `atom_shard` is evaluated on the
+mesh it was compiled on (or with no mesh: every rank then evaluates every
+frame). Accumulators are summed on each rank and over the frames axis
+once at the end; the temporal rows are gathered on the host, through a
+gloo group, into frame order (gloo cannot gather CUDA tensors, and a sum
+into zeros would turn a −0 into +0). Every rank takes every chunk step —
+`interrupt()` is asked on the mesh's first rank and its answer broadcast —
+and returns the same EvalResult.
+
 Not ported: the JAX engine's batch modes (unroll/vmap/dispatch) and
-VIAMD_TPU_PROP_BARRIER — PyTorch runs eagerly, frame by frame — and device
-meshes.
+VIAMD_TPU_PROP_BARRIER — PyTorch runs eagerly, frame by frame.
 """
 
 from __future__ import annotations
@@ -288,9 +299,11 @@ class ChunkStream:
 class Evaluator:
     """Chunked, interruptible evaluation of a compiled script over any
     Trajectory: a DeviceTrajectory on the script's device is read in place,
-    any other trajectory is streamed (ChunkStream)."""
+    any other trajectory is streamed (ChunkStream). With `mesh`, this rank's
+    share of it (module docstring)."""
 
-    def __init__(self, compiled: CompiledScript, traj: Trajectory, chunk: int = 16):
+    def __init__(self, compiled: CompiledScript, traj: Trajectory, chunk: int = 16,
+                 mesh=None, frames_axis: str = "frames"):
         if not isinstance(traj, Trajectory):
             raise TypeError(f"Evaluator needs a Trajectory, got {type(traj).__name__}")
         device = compiled.device
@@ -306,9 +319,30 @@ class Evaluator:
             )
         if chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
+        self.block = chunk  # the frames of a chunk this rank evaluates
+        if compiled.atom_shard is not None and mesh is not None:
+            # frame_fn sums over a line of the compile's mesh: its ranks
+            # must evaluate the same frames
+            shard_mesh, shard_axis = compiled.atom_shard
+            if mesh is not shard_mesh:
+                raise ValueError(
+                    f"script compiled with atom_shard on the mesh {shard_mesh.shape}, "
+                    f"evaluated on the mesh {mesh.shape}: evaluate it on its own mesh "
+                    "(or with none)"
+                )
+            if shard_axis == frames_axis:
+                raise ValueError(f"atom_shard's axis '{shard_axis}' is the frames axis")
+        if mesh is not None:
+            if mesh.device != device:
+                raise ValueError(f"mesh rank on {mesh.device}, script compiled for {device}")
+            # a chunk a multiple of the mesh's ranks (JAX engine.py:280-283)
+            chunk = max(chunk, mesh.size) // mesh.size * mesh.size
+            self.block = chunk // mesh.shape[frames_axis]
         self.compiled = compiled
         self.traj = traj
         self.chunk = chunk
+        self.mesh = mesh
+        self.frames_axis = frames_axis
         self._cells = cells
         self._inv = inv_basis_of(cells)  # (F, 3, 3), once
         # the cells, read to the host once: every cell-list grid is sized
@@ -326,7 +360,7 @@ class Evaluator:
         if isinstance(self.traj, DeviceTrajectory):
             raise TypeError("a DeviceTrajectory is read in place, not streamed")
         if self._stream is None:
-            self._stream = ChunkStream(self.traj, self.compiled.device, self.chunk)
+            self._stream = ChunkStream(self.traj, self.compiled.device, self.block)
         return self._stream
 
     def run(
@@ -341,7 +375,7 @@ class Evaluator:
         `interrupted`); `progress(done / total)` follows each chunk. With
         `resume_from`, its completed frames are skipped and the results
         merged (the md_script_eval_frame_mask resume path)."""
-        traj = self.traj
+        traj, mesh = self.traj, self.mesh
         indices = (
             np.asarray(list(frame_range), np.int64)
             if frame_range is not None
@@ -354,44 +388,55 @@ class Evaluator:
             )
         n_total = indices.size
         chunks = [indices[b : b + self.chunk] for b in range(0, n_total, self.chunk)]
+        # this rank's frames of each chunk, as positions in `indices`
+        k = 0 if mesh is None else mesh.axis_index(self.frames_axis)
+        mine = [np.arange(b + k * self.block, min(b + (k + 1) * self.block, b + c.size))
+                for b, c in zip(range(0, n_total, self.chunk), chunks)]
         frame_fn = self.script.frame_fn
-        frame_mask = Bitfield(traj.num_frames)
         t_chunks: list = []
+        evaluated: list = []  # the positions of this rank's evaluated frames
         acc: Optional[dict] = None
         done, interrupted = 0, False
         stream = None if isinstance(traj, DeviceTrajectory) else self.stream()
         try:
             if stream is not None:
-                stream.start(chunks)
-            for chunk_idx in chunks:
-                if interrupt is not None and interrupt():
+                stream.start([indices[m] for m in mine if m.size])
+            for chunk_idx, pos in zip(chunks, mine):
+                if self._stop(interrupt):
                     interrupted = True
                     break
-                xs = None if stream is None else stream.next()[1]
-                rows, chunk_sum = [], None
-                for j, fi in enumerate(chunk_idx):
-                    fi = int(fi)
-                    x = traj.stack[fi] if xs is None else xs[j]
-                    t, a = frame_fn(x, self._cells[fi], self._inv[fi])
-                    rows.append(t)
-                    chunk_sum = (
-                        a if chunk_sum is None
-                        else {k: chunk_sum[k] + a[k] for k in a}
-                    )
-                    frame_mask.set_bit(fi)
-                t_chunks.append({k: torch.stack([r[k] for r in rows]) for k in rows[0]})
-                if acc is None:
-                    acc = {k: torch.zeros_like(v, dtype=torch.float32)
-                           for k, v in chunk_sum.items()}
-                acc = {k: acc[k] + chunk_sum[k] for k in acc}
+                if pos.size:
+                    xs = None if stream is None else stream.next()[1]
+                    rows, chunk_sum = [], None
+                    for j, fi in enumerate(indices[pos]):
+                        fi = int(fi)
+                        x = traj.stack[fi] if xs is None else xs[j]
+                        t, a = frame_fn(x, self._cells[fi], self._inv[fi])
+                        rows.append(t)
+                        chunk_sum = (
+                            a if chunk_sum is None
+                            else {n: chunk_sum[n] + a[n] for n in a}
+                        )
+                    t_chunks.append({n: torch.stack([r[n] for r in rows]) for n in rows[0]})
+                    if acc is None:
+                        acc = {n: torch.zeros_like(v, dtype=torch.float32)
+                               for n, v in chunk_sum.items()}
+                    acc = {n: acc[n] + chunk_sum[n] for n in acc}
+                    evaluated.append(pos)
                 done += chunk_idx.size
                 if progress is not None:
                     progress(done / n_total)
         finally:
             if stream is not None:
                 stream.close()
+        if mesh is not None:
+            pos = np.concatenate(evaluated) if evaluated else np.zeros(0, np.int64)
+            t_chunks, acc = self._combine(pos, t_chunks, acc)
         acc = acc or {}
         completed = indices[:done]
+        frame_mask = Bitfield(traj.num_frames)
+        for fi in completed:
+            frame_mask.set_bit(int(fi))
         result = EvalResult(
             frame_indices=completed,
             times=np.asarray(traj.frame_times)[completed],
@@ -408,6 +453,43 @@ class Evaluator:
             result = merge_results(resume_from, result)
         return result
 
+    def _stop(self, interrupt) -> bool:
+        """Whether to stop before the next chunk: `interrupt()`, on a mesh
+        asked on its first rank and broadcast to every rank."""
+        mesh = self.mesh
+        if mesh is None:
+            return interrupt is not None and bool(interrupt())
+        first = mesh.rank == int(mesh.ranks.flat[0])
+        return bool(mesh.broadcast_object(first and interrupt is not None and bool(interrupt())))
+
+    def _combine(self, pos: np.ndarray, t_chunks: list, acc: Optional[dict]):
+        """This rank's rows (at positions `pos` of the run's frames) and
+        accumulators → the whole frames axis': the rows gathered on the
+        host into frame order (one chunk on the device), the accumulators
+        summed over the axis."""
+        mesh, axis = self.mesh, self.frames_axis
+        rows = {n: torch.cat([c[n] for c in t_chunks]).cpu().numpy() for n in t_chunks[0]} \
+            if t_chunks else {}
+        shapes = None if acc is None else [(n, tuple(v.shape)) for n, v in acc.items()]
+        parts = mesh.all_gather_object((pos.astype(np.int64), rows, shapes), axis)
+        # positions across the axis are 0 .. done−1, each once
+        n_rows = sum(p[0].size for p in parts)
+        temporal = {}
+        for p_pos, p_rows, _ in parts:
+            for n, v in p_rows.items():
+                if n not in temporal:
+                    temporal[n] = np.empty((n_rows,) + v.shape[1:], v.dtype)
+                temporal[n][p_pos] = v
+        dev = self.compiled.device
+        t_out = [{n: torch.as_tensor(v, device=dev) for n, v in temporal.items()}] \
+            if temporal else []
+        shapes = next((p[2] for p in parts if p[2] is not None), None)
+        if shapes is None:
+            return t_out, None
+        if acc is None:
+            acc = {n: torch.zeros(shape, dtype=torch.float32, device=dev) for n, shape in shapes}
+        return t_out, {n: mesh.all_reduce(acc[n], axis) for n, _ in shapes}
+
 
 def evaluate(
     compiled: CompiledScript,
@@ -416,9 +498,11 @@ def evaluate(
     chunk: int = 16,
     progress: Optional[Callable[[float], None]] = None,
     interrupt: Optional[Callable[[], bool]] = None,
+    mesh=None,
 ) -> EvalResult:
-    """One-shot evaluation (the Shift+Enter path, main.cpp:949-985)."""
-    return Evaluator(compiled, traj, chunk=chunk).run(frame_range, progress, interrupt)
+    """One-shot evaluation (the Shift+Enter path, main.cpp:949-985); with
+    `mesh`, this rank's share of a sharded one."""
+    return Evaluator(compiled, traj, chunk=chunk, mesh=mesh).run(frame_range, progress, interrupt)
 
 
 def merge_results(a: EvalResult, b: EvalResult) -> EvalResult:

@@ -17,6 +17,12 @@ histogram with the all-pairs plain version, `pair_dist_histogram_scatter_idx`
 device raises. `pair_hist_cells_plain` walks exactly the kernel's pairs on
 the kernel's inputs, to count its work and to test the walk on the CPU. The
 kernel counts every pair (no capacity drops), so it is held exactly to both.
+
+Both walks take a window of A cell rows (`rows=(lo, hi)` over the leading
+cell axis; B stays whole): `pair_dist_histogram_cl_sharded`, the
+counterpart of the TPU kernel's slab-sharded mode
+(`pair_dist_histogram_pl_sharded`), gives each rank of a mesh axis its
+even share of the rows and sums the int32 partials over the axis.
 """
 
 from __future__ import annotations
@@ -39,7 +45,9 @@ __all__ = [
     "cell_lists",
     "launches",
     "pair_dist_histogram_cl",
+    "pair_dist_histogram_cl_sharded",
     "pair_dist_histogram_scatter_idx",
+    "slab_rows",
     "pair_hist_cells",
     "pair_hist_cells_plain",
     "sqrt_reject_bound",
@@ -61,7 +69,8 @@ def _library():
         lib.pair_hist_launch.argtypes = [ctypes.c_void_p] * 8 + [
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_float, ctypes.c_float, ctypes.c_float,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_void_p,
         ]
         lib.pair_hist_launch.restype = ctypes.c_int
         lib.pair_hist_max_bins.argtypes = []
@@ -108,6 +117,21 @@ def _check_radius(radius, dims):
                          f"{2 * radius + 1}, got {dims}")
 
 
+def _window(rows, dims) -> tuple[int, int]:
+    """The A rows [lo, hi) of the leading cell axis; the whole grid when
+    `rows` is None."""
+    lo, hi = (0, dims[0]) if rows is None else (int(rows[0]), int(rows[1]))
+    if not 0 <= lo <= hi <= dims[0]:
+        raise ValueError(f"rows {rows} outside [0, {dims[0]}]")
+    return lo, hi
+
+
+def slab_rows(k: int, n: int, dx: int) -> tuple[int, int]:
+    """Rank k's rows of n over a leading cell axis of dx rows: the even
+    split [k·dx // n, (k+1)·dx // n)."""
+    return k * dx // n, (k + 1) * dx // n
+
+
 def pair_hist_cells(
     xa: torch.Tensor,  # (na, 3) f32, A atoms in cell order
     ida: torch.Tensor,  # (na,) int32 global ids
@@ -122,14 +146,24 @@ def pair_hist_cells(
     r_max: float,
     symmetric: bool = False,  # B is A's own cell list: the half stencil
     radius: int = 1,  # stencil reach in cells: 1 or 2
+    rows: tuple | None = None,  # A cell rows [lo, hi) of dims[0]; all by default
 ) -> torch.Tensor:
     """Launch csrc/pair_hist.cu on CSR cell lists → (nbins,) f32 counts."""
+    return _pair_hist_counts(xa, ida, a_start, xb, idb, b_start, basis, inv_basis,
+                             dims, nbins, r_max, symmetric, radius, rows).to(torch.float32)
+
+
+def _pair_hist_counts(xa, ida, a_start, xb, idb, b_start, basis, inv_basis, dims,
+                      nbins, r_max, symmetric, radius, rows) -> torch.Tensor:
+    """`pair_hist_cells` → the kernel's (nbins,) int32 counts. An empty
+    window launches nothing."""
     global launches
     _check_symmetric(xa, ida, a_start, xb, idb, b_start, symmetric)
     dev = xa.device
     if dev.type != "cuda":
         raise ValueError(f"pair_hist_cells needs CUDA tensors, got {dev}")
     _check_radius(radius, dims)
+    lo, hi = _window(rows, dims)
     lib = _library()
     if not 0 < nbins <= lib.pair_hist_max_bins():
         raise ValueError(f"nbins {nbins} outside (0, {lib.pair_hist_max_bins()}]")
@@ -144,19 +178,21 @@ def pair_hist_cells(
     _check(basis, "basis", torch.float32, (3, 3), dev)
     _check(inv_basis, "inv_basis", torch.float32, (3, 3), dev)
     hist = torch.zeros(nbins, dtype=torch.int32, device=dev)
+    if lo == hi:
+        return hist
     inv_bin = float(torch.tensor(nbins / r_max, dtype=torch.float32))
     err = lib.pair_hist_launch(
         xa.data_ptr(), ida.data_ptr(), a_start.data_ptr(),
         xb.data_ptr(), idb.data_ptr(), b_start.data_ptr(),
         basis.data_ptr(), inv_basis.data_ptr(),
         dims[0], dims[1], dims[2], nbins, r_max, inv_bin,
-        sqrt_reject_bound(r_max), int(symmetric), radius,
+        sqrt_reject_bound(r_max), int(symmetric), radius, lo, hi,
         hist.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"pair_hist kernel launch failed: CUDA error {err}")
     launches += 1
-    return hist.to(torch.float32)
+    return hist
 
 
 def pair_hist_cells_plain(
@@ -174,6 +210,7 @@ def pair_hist_cells_plain(
     symmetric: bool = False,
     radius: int = 1,
     work: dict | None = None,
+    rows: tuple | None = None,
 ) -> torch.Tensor:
     """`pair_hist_cells` in plain PyTorch: the kernel's walk, pair for pair,
     on any device → (nbins,) f32 counts.
@@ -182,20 +219,35 @@ def pair_hist_cells_plain(
     cell: with `symmetric`, the self cell's atoms after it in CSR order and
     the upper offsets, each unordered pair counted twice; else every cell,
     pairs of equal ids skipped. Distances as `min_image_dist` computes them,
-    the sqrt only where |o|² <= sqrt_reject_bound(r_max). `work`, when
-    given, receives the walk's counts: "pairs" (candidates walked) and
+    the sqrt only where |o|² <= sqrt_reject_bound(r_max). `rows=(lo, hi)`
+    walks only the A atoms of the cell rows [lo, hi) of dims[0]. `work`,
+    when given, receives the walk's counts: "pairs" (candidates walked) and
     "sqrt" (candidates past the reject)."""
+    return _walk_counts(xa, ida, a_start, xb, idb, b_start, basis, inv_basis, dims,
+                        nbins, r_max, symmetric, radius, rows, work).to(torch.float32)
+
+
+def _walk_counts(xa, ida, a_start, xb, idb, b_start, basis, inv_basis, dims,
+                 nbins, r_max, symmetric, radius, rows, work=None) -> torch.Tensor:
+    """`pair_hist_cells_plain` → (nbins,) int64 counts."""
     _check_symmetric(xa, ida, a_start, xb, idb, b_start, symmetric)
     _check_radius(radius, dims)
+    lo, hi = _window(rows, dims)
     dev = xa.device
-    na = xa.shape[0]
-    ncells = dims[0] * dims[1] * dims[2]
+    yz = dims[1] * dims[2]
     a_st, b_st = a_start.long(), b_start.long()
+    if rows is None:  # no wait on the device for the whole grid
+        a0, na = 0, xa.shape[0]
+    else:
+        a0 = int(a_st[lo * yz])
+        na = int(a_st[hi * yz]) - a0
+    atoms = torch.arange(a0, a0 + na, device=dev)  # the window's A atoms
     cell = torch.repeat_interleave(
-        torch.arange(ncells, device=dev), a_st[1:] - a_st[:-1], output_size=na
+        torch.arange(lo * yz, hi * yz, device=dev),
+        a_st[lo * yz + 1 : hi * yz + 1] - a_st[lo * yz : hi * yz], output_size=na,
     )
-    rank = torch.arange(na, device=dev) - a_st[cell]  # index in its cell
-    c3 = (cell // (dims[1] * dims[2]), (cell // dims[2]) % dims[1], cell % dims[2])
+    rank = atoms - a_st[cell]  # index in its cell
+    c3 = (cell // yz, (cell // dims[2]) % dims[1], cell % dims[2])
     s_hi = sqrt_reject_bound(r_max)
     inv_bin = float(torch.tensor(nbins / r_max, dtype=torch.float32))
     counts = torch.zeros(nbins, dtype=torch.int64, device=dev)
@@ -203,13 +255,14 @@ def pair_hist_cells_plain(
     for o in stencil_offsets(radius, symmetric):
         nx, ny, nz = ((c3[k] + o[k]) % dims[k] for k in range(3))
         nc = (nx * dims[1] + ny) * dims[2] + nz
-        lo, n = b_st[nc], b_st[nc + 1] - b_st[nc]
+        b_lo, n = b_st[nc], b_st[nc + 1] - b_st[nc]
         if symmetric and o == (0, 0, 0):
-            lo, n = lo + rank + 1, n - rank - 1
+            b_lo, n = b_lo + rank + 1, n - rank - 1
         total = int(n.sum())
         pairs += total
-        pi = torch.repeat_interleave(torch.arange(na, device=dev), n, output_size=total)
-        pj = lo[pi] + torch.arange(total, device=dev) - (torch.cumsum(n, 0) - n)[pi]
+        pl = torch.repeat_interleave(torch.arange(na, device=dev), n, output_size=total)
+        pj = b_lo[pl] + torch.arange(total, device=dev) - (torch.cumsum(n, 0) - n)[pl]
+        pi = atoms[pl]
         if not symmetric:
             distinct = ida[pi] != idb[pj]
             pi, pj = pi[distinct], pj[distinct]
@@ -222,7 +275,7 @@ def pair_hist_cells_plain(
         counts.index_add_(0, bins, torch.ones_like(bins))
     if work is not None:
         work.update(pairs=pairs, sqrt=sqrts)
-    return (counts * 2 if symmetric else counts).to(torch.float32)
+    return counts * 2 if symmetric else counts
 
 
 def cell_lists(
@@ -280,8 +333,17 @@ def pair_dist_histogram_cl(
         )
     if x.device.type != "cuda":
         raise ValueError(f"no pair histogram route for device {x.device}")
+    return _cl_counts(x, idx_a, idx_b, basis, inv_basis, nbins, r_max, dims,
+                      fractional, radius, None).to(torch.float32)
+
+
+def _cl_counts(x, idx_a, idx_b, basis, inv_basis, nbins, r_max, dims, fractional,
+               radius, rows) -> torch.Tensor:
+    """The cell lists of A and B, walked over A's cell rows `rows` (all for
+    None) → (nbins,) int32 counts: the kernel on CUDA, its plain walk on the
+    CPU."""
     if idx_a.shape[0] == 0 or idx_b.shape[0] == 0:
-        return torch.zeros(nbins, dtype=torch.float32, device=x.device)
+        return torch.zeros(nbins, dtype=torch.int32, device=x.device)
     basis, inv_basis = basis.contiguous(), inv_basis.contiguous()
     a = cell_lists(x, idx_a, basis, inv_basis, dims, fractional)
     # one cell list and the half stencil serve both sides when the caller
@@ -289,6 +351,42 @@ def pair_dist_histogram_cl(
     # on the device)
     symmetric = idx_b is idx_a
     b = a if symmetric else cell_lists(x, idx_b, basis, inv_basis, dims, fractional)
-    return pair_hist_cells(
-        *a, *b, basis, inv_basis, dims, nbins, r_max, symmetric, radius,
-    )
+    walk = _pair_hist_counts if x.device.type == "cuda" else _walk_counts
+    return walk(*a, *b, basis, inv_basis, dims, nbins, r_max, symmetric, radius,
+                rows).to(torch.int32)
+
+
+def pair_dist_histogram_cl_sharded(
+    x: torch.Tensor,
+    idx_a: torch.Tensor,
+    idx_b: torch.Tensor,
+    basis: torch.Tensor,
+    inv_basis: torch.Tensor,
+    nbins: int,
+    r_max: float,
+    dims: tuple,
+    mesh,  # parallel.mesh.Mesh holding `axis`
+    axis: str = "atoms",
+    fractional: bool = False,
+    radius: int = 1,
+) -> torch.Tensor:
+    """`pair_dist_histogram_cl` with its A cell rows split over the ranks of
+    the mesh axis `axis` → (nbins,) f32, the same on every rank of it.
+
+    The counterpart of viamd_tpu/ops/pallas_rdf.py::
+    pair_dist_histogram_pl_sharded. Every rank builds the whole (replicated)
+    cell lists, walks the A atoms of its rows, `slab_rows(k, n, dims[0])`,
+    against all of B — the kernel on CUDA, `pair_hist_cells_plain` on the
+    CPU — and the int32 partials are summed over the axis before they turn
+    into float32, so the result equals the whole grid's bit for bit. The
+    JAX package's window rule (w = max(⌈dx/n⌉, 2r+1) rows a device) served
+    the TPU's rolled B-plane windows; the even split keeps every rank busy
+    at 5 rows over 4 ranks. Every rank of the axis must call this together:
+    the sum is a collective, and on a gloo group it makes the host wait."""
+    _check_radius(radius, dims)
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no pair histogram route for device {x.device}")
+    rows = slab_rows(mesh.axis_index(axis), mesh.shape[axis], dims[0])
+    counts = _cl_counts(x, idx_a, idx_b, basis, inv_basis, nbins, r_max, dims,
+                        fractional, radius, rows)
+    return mesh.all_reduce(counts, axis).to(torch.float32)

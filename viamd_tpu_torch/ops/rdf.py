@@ -143,6 +143,37 @@ def pair_dist_histogram_scatter_idx(
     return hist[:nbins]
 
 
+def pair_dist_histogram_atom_sharded(
+    x: torch.Tensor,
+    w_a: torch.Tensor,  # (n,) A weights over all atoms
+    w_b: torch.Tensor,  # (n,) B weights over all atoms
+    basis: torch.Tensor,
+    inv_basis: torch.Tensor,
+    nbins: int,
+    r_max: float,
+    mesh,  # parallel.mesh.Mesh holding `axis`
+    axis: str = "atoms",
+) -> torch.Tensor:
+    """Atom-axis sharded weighted pair histogram → (nbins,) f32, the same on
+    every rank of the mesh axis `axis`.
+
+    Counterpart of viamd_tpu.ops.rdf.pair_dist_histogram_atom_sharded (plain
+    code there too): rank k of the axis takes the A rows [k·n // s,
+    (k+1)·n // s) against every atom through
+    `pair_dist_histogram_scatter_idx` (self pairs skipped by global id), and
+    the float32 partials are summed over the axis — in another order than
+    one rank's sum, so equal to it within float32 rounding. Every rank of the
+    axis must call it together."""
+    n = x.shape[0]
+    k, s = mesh.axis_index(axis), mesh.shape[axis]
+    lo, hi = k * n // s, (k + 1) * n // s
+    ids = torch.arange(n, dtype=torch.int32, device=x.device)
+    hist = pair_dist_histogram_scatter_idx(
+        x, ids[lo:hi], ids, w_a[lo:hi], w_b, basis, inv_basis, nbins, r_max
+    )
+    return mesh.all_reduce(hist, axis)
+
+
 def pair_dist_histogram_dynamic(
     x: torch.Tensor,
     idx_a: torch.Tensor,

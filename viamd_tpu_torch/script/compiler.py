@@ -43,6 +43,9 @@ grids for the smallest perpendicular widths of a trajectory's frames (the
 Evaluator's), so a frame whose box shrank still has cells at least the
 reach wide; a site whose grid no longer fits takes the dense route. (The
 JAX package sizes its grids from the system's cell only.)
+With `atom_shard=(axis, n)` the cell-list rdf routes split their A cell
+rows over an axis of the current device mesh (parallel/mesh.py) and sum
+the partials; every other route is unchanged.
 """
 
 from __future__ import annotations
@@ -64,7 +67,7 @@ from viamd_tpu_torch.ops import geometry as geom_ops
 from viamd_tpu_torch.ops import pbc as pbc_ops
 from viamd_tpu_torch.ops import rmsd as rmsd_ops
 from viamd_tpu_torch.ops import sdf as sdf_ops
-from viamd_tpu_torch.ops.cuda_rdf import pair_dist_histogram_cl
+from viamd_tpu_torch.ops.cuda_rdf import pair_dist_histogram_cl, pair_dist_histogram_cl_sharded
 from viamd_tpu_torch.ops.neighbors import choose_grid, choose_grid_r, perpendicular_widths
 from viamd_tpu_torch.ops.pbc import inv_basis_of
 from viamd_tpu_torch.ops.rdf import (
@@ -151,6 +154,8 @@ class CompiledScript:
     grids: list = field(default_factory=list)
     # (x, basis, inv_basis, grids) -> frame_fn's result on other grids
     run_frame: Callable = field(default=None, repr=False)
+    # (mesh, axis) of compile_script(atom_shard=): frame_fn sums over it
+    atom_shard: Optional[tuple] = field(default=None, repr=False)
 
     def property(self, name: str) -> PropertyMeta:
         for p in self.properties:
@@ -225,15 +230,42 @@ def compile_script(
     system: S.System,
     device,
     identifiers: Optional[dict[str, Bitfield]] = None,
+    atom_shard: Optional[tuple] = None,
 ) -> CompiledScript:
     """Compile script text against `system`; all tensors live on `device`.
 
     `identifiers` injects stored selections as script identifiers
-    (VIAMD src/main.cpp:860-863)."""
+    (VIAMD src/main.cpp:860-863).
+
+    `atom_shard=(axis, n)`: intra-frame parallelism over the axis `axis`,
+    of n ranks, of the current device mesh (parallel.mesh.frames_mesh): the
+    cell-list RDF splits its A cell rows over the axis and sums the partials
+    (ops/cuda_rdf.py::pair_dist_histogram_cl_sharded); the dense routes are
+    unchanged. Every frame_fn call, the compile's own walk included, is then
+    a collective of the axis' ranks: they compile and evaluate together."""
     # resolve "cuda" to the current "cuda:N", the device tensors report
     device = torch.empty(0, device=device).device
-    comp = _Compiler(system, device, identifiers)
+    comp = _Compiler(system, device, identifiers, _shard_axis(atom_shard))
     return comp.compile(P.parse(src), src)
+
+
+def _shard_axis(atom_shard: Optional[tuple]):
+    """(mesh, axis) of atom_shard=(axis, n) on the current mesh, or None;
+    a ScriptError unless that mesh has the axis with n ranks (JAX
+    compiler.py:186-193, pallas_rdf.py:636-641)."""
+    if atom_shard is None:
+        return None
+    from viamd_tpu_torch.parallel.mesh import current_mesh
+
+    axis, n = atom_shard
+    mesh = current_mesh()
+    if mesh is None:
+        raise ScriptError(f"atom_shard declares {n} devices on axis '{axis}' but there "
+                          "is no device mesh (parallel.frames_mesh)")
+    if mesh.shape.get(axis) != int(n):
+        raise ScriptError(f"atom_shard declares {n} devices on axis '{axis}' but the "
+                          f"mesh has {mesh.shape.get(axis, 0)}")
+    return mesh, axis
 
 
 class _Compiler:
@@ -242,10 +274,12 @@ class _Compiler:
         system: S.System,
         device: torch.device,
         identifiers: Optional[dict[str, Bitfield]] = None,
+        atom_shard: Optional[tuple] = None,  # (mesh, axis)
     ):
         self.sys = system
         self.n = system.natoms
         self.device = device
+        self.atom_shard = atom_shard
         self.x0 = np.ascontiguousarray(system.coords(), dtype=np.float32)
         self.masses = system.mass.astype(np.float32)
         self.basis0 = np.asarray(system.cell.basis, np.float32)
@@ -351,6 +385,7 @@ class _Compiler:
             grid_sites=self.grid_sites,
             grids=grids0,
             run_frame=run_frame,
+            atom_shard=self.atom_shard,
         )
 
     # -- walking ------------------------------------------------------------
@@ -1426,6 +1461,11 @@ def _rdf(c: _Compiler, node, args):
     if grid is None or grid.dense:
         hist = pair_dist_histogram_scatter_idx(
             c._x, ia, ib, *ones, c._basis, c._inv, RDF_BINS, cutoff
+        )
+    elif c.atom_shard is not None:
+        hist = pair_dist_histogram_cl_sharded(
+            c._x, ia, ib, c._basis, c._inv, RDF_BINS, cutoff, grid.dims,
+            *c.atom_shard, fractional=grid.fractional, radius=grid.radius,
         )
     else:
         hist = pair_dist_histogram_cl(
