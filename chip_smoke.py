@@ -147,17 +147,20 @@ result line each (several for 16–22):
    seeded synthetic MO coefficients (a QR's Q), 140 occupied orbitals, one
    synthetic excited state, through components.VeloxchemComponent: the
    Export window's OBB grids at "mid" and "high", HOMO and the electron
-   density each through csrc/gto.cu (ψ mode, one launch, for the HOMO; Φ
-   mode a chunk and torch.matmul for the density; ms by events and host
+   density each through csrc/gto.cu (one launch a grid: ψ mode for the
+   HOMO, ρ mode for the density, neither writes Φ; ms by events and host
    clock, launches, no primitive_matrix build, peak memory, the pairs that
-   are not 0 (α·r² < 40 at the voxel) and the pairs the kernel's block
+   are not 0 (α·r² < 40 at the voxel) and the pairs the kernel's brick
    screen evaluates, the bounds over those two and over all pairs and the
    grid's share of each,
    export_volume to .mhd/.raw/.xyz under `.chip_scratch/`, removed); the
    kernel against its plain version on the card (ψ over the whole "mid"
-   grid within its stated bound, the "mid" density, Φ rows of sampled
-   "high" chunks bit for bit) and the kernel's and the plain version's
-   "high" HOMO times; orbital_grid at 128³ and
+   grid within its stated bound; the "mid" density whole, the "high"
+   density at sampled voxels and a "mid" transition density, each within
+   QM_RTOL and its float32 bound, one launch each; two density runs
+   bit-equal) and the kernel's and the plain version's "high" HOMO and
+   density times (device time behind a queued sleep; events);
+   orbital_grid at 128³ and
    render_orbital at 1920×1080 through volume.cu; the 64³ density's
    topology (critical points, edges, the numpy host time) and
    render_topology through raster.cu; the excited state's transition
@@ -440,11 +443,13 @@ OPS_TRI_TEST, OPS_TRI_STAGE, OPS_TRI_RAY, OPS_TRI_SHADE = 36, 42, 10, 60
 # charges within QM_CHARGE_RTOL (the same winners and fixed-point sums)
 QM_RES, QM_PRESETS, QM_ORBITAL_DIMS, QM_TOPO_DIMS, QM_SAMPLES = 8, ("mid", "high"), 128, 64, 8_192
 QM_RTOL, QM_CHARGE_RTOL = 1e-5, 1e-6
-# csrc/gto.cu against its plain version on the card: Φ rows bit for bit
-# (QM_PHI_CHUNKS chunks of QM_SAMPLES voxels at seeded offsets of the last
-# preset's grid); ψ within 2·K·2⁻²⁴·Σ_k |φ_k·c_k| at each voxel (both sum
-# orders' float32 error bound) over the whole first preset's grid
-QM_PHI_CHUNKS, F32_U = 4, 2.0**-24
+# csrc/gto.cu against its plain version on the card: ψ within
+# 2·K·2⁻²⁴·Σ_k |φ_k·c_k| at each voxel (both sum orders' float32 error
+# bound); ρ within QM_RTOL of the largest and within 2·(2K + M + 8)·2⁻²⁴·
+# Σ_m |w_m|·(|Φ||A|)_m·(|Φ||B|)_m at each voxel (csrc/gto.cu's note); over
+# the whole first preset's grid, and QM_CHUNKS chunks of QM_SAMPLES voxels
+# at seeded offsets of the last preset's
+QM_CHUNKS, F32_U = 4, 2.0**-24
 # f32 operations of one primitive evaluation (ops/gto.py::primitive_matrix),
 # the exp counted as one: d (3), r² (5), α·r² (1), the cutoff test (1),
 # −α·r² (1), exp (1), the product of the three powers (2), ang · rad (1);
@@ -2387,8 +2392,8 @@ def needed_pairs(points, basis, chunk: int = 16_384) -> np.ndarray:
 
 def screen_pairs(points, groups, basis, chunk: int = 2048) -> np.ndarray:
     """(K,) count, per primitive, of the voxels where the kernel evaluates
-    it: cuda_gto.screen_keep over the kernel's voxel groups (brick_voxels or
-    row_tiles), in chunks of groups."""
+    it: cuda_gto.screen_keep over the kernel's voxel groups (brick_voxels of
+    ψ's or ρ's bricks), in chunks of groups."""
     n = torch.zeros(basis.centers.shape[0], dtype=torch.int64, device=points.device)
     for g0 in range(0, groups.shape[0], chunk):
         g = groups[g0 : g0 + chunk]
@@ -2409,6 +2414,36 @@ def plain_psi(basis, c, geo, chunk: int = gto.CHUNK):
         psi[c0 : c0 + chunk] = gto._contract(phi, c)
         mag[c0 : c0 + chunk] = (phi * c[None, :]).abs().sum(1)
     return psi, mag
+
+
+def plain_rho(basis, A, B, w, pts, T=None, chunk: int = gto.CHUNK) -> tuple:
+    """The plain ρ = Σ_m w_m·(ΦA)_m·(ΦB)_m at pts (B = A when None; with T,
+    ΦA is (Φ A) T, the transition density's order), primitive_matrix and
+    matmuls by chunks on pts' device → (ρ, Σ_m |w_m|·(|Φ||A|)_m·(|Φ||B|)_m),
+    the latter with |A| |T| for A when T is given."""
+    rho = torch.empty(pts.shape[0], dtype=torch.float32, device=pts.device)
+    mag = torch.empty_like(rho)
+    for c0 in range(0, pts.shape[0], chunk):
+        phi = basis.phi(pts[c0 : c0 + chunk])
+        a, pa = phi @ A, phi.abs() @ A.abs()
+        if T is not None:
+            a, pa = a @ T, pa @ T.abs()
+        b, pb = (a, pa) if B is None else (phi @ B, phi.abs() @ B.abs())
+        rho[c0 : c0 + chunk] = (a * b * w[None, :]).sum(1)
+        mag[c0 : c0 + chunk] = (pa * pb * w.abs()[None, :]).sum(1)
+    return rho, mag
+
+
+def rho_check(got, want, mag, terms: int, name: str) -> tuple:
+    """(max |Δ| over the largest |want|, the largest |Δ| over its float32
+    bound 2·terms·2⁻²⁴·mag, max |Δ|) of a ρ grid against its plain version;
+    raises unless within QM_RTOL and the bound."""
+    d = (got - want).abs()
+    err = float(d.max() / want.abs().max())
+    ratio = float((d / (2 * terms * F32_U * mag).clamp_min(1e-38)).max())
+    if not (err <= QM_RTOL and ratio <= 1.0):
+        raise AssertionError(f"gto {name}: {err:.3g} of the largest, {ratio:.3g} of its bound")
+    return err, ratio, float(d.max())
 
 
 def qm_phase(dev, n_res: int = QM_RES, presets=QM_PRESETS, orbital_dims: int = QM_ORBITAL_DIMS,
@@ -2466,7 +2501,6 @@ def qm_phase(dev, n_res: int = QM_RES, presets=QM_PRESETS, orbital_dims: int = Q
                 torch.cuda.reset_peak_memory_stats()
                 base = torch.cuda.memory_allocated()
                 runs = []
-                per_call = 1 if source == "mo" else -(-P // gto.CUDA_CHUNK)
                 for _ in range(2):
                     phis[0] = 0
                     n0 = cuda_gto.launches
@@ -2474,22 +2508,19 @@ def qm_phase(dev, n_res: int = QM_RES, presets=QM_PRESETS, orbital_dims: int = Q
                         g, ms_dev, ms_host = device_and_host_ms(fn)
                     runs.append((ms_dev, ms_host))
                     launched = cuda_gto.launches - n0  # just after
-                    if phis[0] or launched != per_call:
+                    if phis[0] or launched != 1:
                         raise AssertionError(f"qm {preset} {source}: {launched} gto launches "
-                                             f"(want {per_call}), {phis[0]} primitive_matrix builds")
+                                             f"(want 1), {phis[0]} primitive_matrix builds")
                     main_launches += launched
                 peak = (torch.cuda.max_memory_allocated() - base) / 2**20
                 if not (g.shape == dims_t and bool(torch.isfinite(g).all())
                         and float(g.abs().max()) > 0):
                     raise AssertionError(f"qm {preset} {source} grid {tuple(g.shape)}")
                 # the pairs any exact implementation evaluates, and the pairs
-                # the kernel's block screen keeps (its bricks or row tiles)
-                if source == "mo":
-                    done = screen_pairs(pts, cuda_gto.brick_voxels(dims_t, device=dev), basis)
-                else:
-                    done = sum(screen_pairs(pts, cuda_gto.row_tiles(c0, min(gto.CUDA_CHUNK, P - c0),
-                                                                    device=dev), basis)
-                               for c0 in range(0, P, gto.CUDA_CHUNK))
+                # the kernel's brick screen keeps (ψ's bricks or ρ's)
+                brick = cuda_gto.BRICK if source == "mo" else cuda_gto.RHO_BRICK
+                done = screen_pairs(pts, cuda_gto.brick_voxels(dims_t, device=dev, brick=brick),
+                                    basis)
                 t1 = time.perf_counter()
                 files = vlx.export_volume(str(work / f"{preset}-{source}.mhd"), source=source,
                                           fmt="mhd", resolution=preset)
@@ -2506,14 +2537,15 @@ def qm_phase(dev, n_res: int = QM_RES, presets=QM_PRESETS, orbital_dims: int = Q
                 best = min(r[0] for r in runs)
                 grids[(preset, source)] = dict(ms=best, bound_ms=n_ms, bound_by=n_by,
                                                bound_all_ms=a_ms, bound_kernel_ms=w_ms,
-                                               dims=dims_t, peak_mib=peak, grid=g)
+                                               dims=dims_t, peak_mib=peak, grid=g,
+                                               launches=len(runs))
                 phase("qm", t0, (
                     f"export grid {preset} {dims_t} ({P} points) {source}: {M} column(s); ms "
                     f"(events / host) " + " | ".join(f"{a:.2f} / {b:.2f}" for a, b in runs)
-                    + f"; gto launches a grid {per_call} ({'ψ' if source == 'mo' else 'Φ'} mode), "
+                    + f"; gto launches a grid 1 ({'ψ' if source == 'mo' else 'ρ'} mode), "
                     f"primitive_matrix builds 0; peak mem +{peak:.1f} MiB; pairs {P * K}, of them "
                     f"not 0 (α·r² < 40) {int(need.sum())} ({need.sum() / (P * K) * 100:.2f}%), "
-                    f"evaluated by the kernel's screen of {'4x8x8 bricks' if source == 'mo' else '32-row tiles'} "
+                    f"evaluated by the kernel's screen of {'x'.join(map(str, brick))} bricks "
                     f"{int(done.sum())} ({done.sum() / (P * K) * 100:.2f}%); bound over the pairs "
                     f"not 0 {n_ms:.3f} ms ({n_by}; {n_ops:.6g} operations, {nbytes} bytes), grid at "
                     f"{n_ms / best * 100:.1f}% of it; over the kernel's pairs {w_ms:.3f} ms ({w_by}; "
@@ -2524,8 +2556,9 @@ def qm_phase(dev, n_res: int = QM_RES, presets=QM_PRESETS, orbital_dims: int = Q
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    # the kernel against its plain version on the card: ψ over the whole
-    # first preset's grid, Φ rows of sampled chunks of the last preset's
+    # the kernel against its plain version on the card: ψ and ρ over the
+    # whole first preset's grid, sampled chunks of the last preset's, a
+    # transition density over the first preset's
     t1 = time.perf_counter()
     R, lo, voxel, dims = vlx.obb_geometry(vlx.RESOLUTION_SAMPLES_PER_ANG[presets[0]])
     geo = dict(origin=lo, voxel=voxel, dims=tuple(int(d) for d in dims), orientation=R, device=dev)
@@ -2536,36 +2569,43 @@ def qm_phase(dev, n_res: int = QM_RES, presets=QM_PRESETS, orbital_dims: int = Q
     if not bool(((got - want).abs() <= 2 * K * F32_U * mag).all()):
         raise AssertionError(f"gto ψ {presets[0]}: off its plain version by {psi_ratio:.3g} of "
                              "the bound")
-    C_occ = gto._f32(C_all, dev)[:, torch.as_tensor(np.flatnonzero(occ), device=dev)]
+    C_occ = gto._f32(C_all, dev)[:, torch.as_tensor(np.flatnonzero(occ), device=dev)].contiguous()
     occ_t = torch.as_tensor(occ[occ != 0], device=dev)
-
-    def rho_plain(block):
-        psi = basis.phi(block) @ C_occ
-        return (psi * psi * occ_t[None, :]).sum(1)
-
-    rho_want = gto._over_chunks(rho_plain, lo, voxel, geo["dims"], R, gto.CUDA_CHUNK,
-                                dev).reshape(-1)
+    M = C_occ.shape[1]
+    pts = gto.grid_points(lo, voxel, geo["dims"], R, device=dev)
+    rho_want, rho_mag = plain_rho(basis, C_occ, None, occ_t, pts)
     rho_got = grids[(presets[0], "electron_density")]["grid"].reshape(-1)
-    rho_err = float((rho_got - rho_want).abs().max() / rho_want.abs().max())
-    if not rho_err <= QM_RTOL:
-        raise AssertionError(f"gto density {presets[0]}: {rho_err:.3g} of the largest")
+    rho_err, rho_ratio, rho_abs = rho_check(rho_got, rho_want, rho_mag, 2 * K + M + 8,
+                                            f"density {presets[0]}")
+    # a transition density (excited state 0) over the first preset's grid:
+    # one launch on A = C_occ·T, B = C_virt, held to (Φ C_occ) T · (Φ C_virt)
+    exc_T = np.asarray(qm.excited.transition_dms[0], np.float32)
+    Co, Cv = vlx._split_occ_virt()
+    _, _, Cop, _ = qm.primitives_for_vectors(Co)
+    _, _, Cvp, _ = qm.primitives_for_vectors(Cv)
+    n0, phis[0] = cuda_gto.launches, 0
+    with mock.patch.object(gto, "primitive_matrix", counted):
+        rt_got = gto.transition_density_grid(centers, exps, Cop, Cvp, exc_T, lmn, **geo).reshape(-1)
+    rt_launches = cuda_gto.launches - n0
+    if rt_launches != 1 or phis[0]:
+        raise AssertionError(f"transition density: {rt_launches} gto launches, {phis[0]} "
+                             "primitive_matrix builds")
+    Cvp_t = gto._f32(Cvp, dev)
+    rt_want, rt_mag = plain_rho(basis, gto._f32(Cop, dev), Cvp_t,
+                                torch.ones(Cvp_t.shape[1], device=dev), pts,
+                                T=gto._f32(exc_T, dev))
+    rt_err, rt_ratio, rt_abs = rho_check(rt_got, rt_want, rt_mag,
+                                         2 * K + Cop.shape[1] + Cvp.shape[1] + 8,
+                                         f"transition density {presets[0]}")
     R, lo, voxel, dims = vlx.obb_geometry(vlx.RESOLUTION_SAMPLES_PER_ANG[presets[-1]])
     dims_t = tuple(int(d) for d in dims)
     pts = gto.grid_points(lo, voxel, dims_t, R, device=dev)
     grid_gp = cuda_gto.grid_block(lo, voxel, R)
-    table = cuda_gto.prim_table(basis.centers, basis.exponents, basis.lmn)
     rng = np.random.RandomState(SEED)
-    phi_diff = 0
-    c0s = sorted(int(c) for c in rng.randint(0, pts.shape[0] - samples, QM_PHI_CHUNKS))
-    for c0 in c0s:
-        got_phi = cuda_gto.phi_rows(table, grid_gp, dims_t, c0, samples)
-        want_phi = gto.primitive_matrix(pts[c0 : c0 + samples], basis.centers, basis.exponents,
-                                        basis.lmn)
-        phi_diff += int((got_phi != want_phi).sum())
-    if phi_diff:
-        raise AssertionError(f"gto Φ rows differ from primitive_matrix in {phi_diff} entries")
+    c0s = sorted(int(c) for c in rng.randint(0, pts.shape[0] - samples, QM_CHUNKS))
     high_psi = grids[(presets[-1], "mo")]["grid"].reshape(-1)
-    high_err = 0.0
+    high_rho = grids[(presets[-1], "electron_density")]["grid"].reshape(-1)
+    high_err, high_rho_err, high_rho_ratio, high_rho_abs = 0.0, 0.0, 0.0, 0.0
     for c0 in c0s:
         phi = basis.phi(pts[c0 : c0 + samples])
         w = gto._contract(phi, c_homo)
@@ -2574,30 +2614,61 @@ def qm_phase(dev, n_res: int = QM_RES, presets=QM_PRESETS, orbital_dims: int = Q
         if not bool((d <= 2 * K * F32_U * m).all()):
             raise AssertionError(f"gto ψ {presets[-1]} chunk {c0}: off its plain version")
         high_err = max(high_err, float(d.max()))
-    # the plain ψ over the whole last preset's grid on the card (the route
-    # the port took before the kernel), for the kernel line
+        want_c, mag_c = plain_rho(basis, C_occ, None, occ_t, pts[c0 : c0 + samples])
+        e, r_, a_ = rho_check(high_rho[c0 : c0 + samples], want_c, mag_c, 2 * K + M + 8,
+                              f"density {presets[-1]} chunk {c0}")
+        high_rho_err, high_rho_ratio = max(high_rho_err, e), max(high_rho_ratio, r_)
+        high_rho_abs = max(high_rho_abs, a_)
+    rho_again = gto.density_grid(centers, exps, C_all, lmn, lo, voxel, dims_t, occupations=occ,
+                                 orientation=R, device=dev).reshape(-1)
+    if not torch.equal(rho_again, high_rho):
+        raise AssertionError(f"gto density {presets[-1]}: two runs differ")
+    # the plain ψ and ρ over the whole last preset's grid on the card (the
+    # route the port took before the kernel), for the kernel line
     _, ms_plain, _ = device_and_host_ms(
         lambda: gto._over_chunks(lambda b: gto._contract(basis.phi(b), c_homo), lo, voxel,
                                  dims_t, R, gto.CHUNK, dev))
     ms_kernel = cuda_ms(lambda: cuda_gto.psi_grid(
         cuda_gto.prim_table(basis.centers, basis.exponents, basis.lmn, c_homo), grid_gp, dims_t),
         reps=5, warmup=1, queued=True)
+
+    def rho_plain(block):
+        psi = basis.phi(block) @ C_occ
+        return (psi * psi * occ_t[None, :]).sum(1)
+
+    _, ms_rho_plain, _ = device_and_host_ms(
+        lambda: gto._over_chunks(rho_plain, lo, voxel, dims_t, R, gto.CHUNK, dev))
+    table = cuda_gto.prim_table(basis.centers, basis.exponents, basis.lmn)
+    ms_rho = cuda_ms(lambda: cuda_gto.rho_grid(table, C_occ, None, occ_t, grid_gp, dims_t),
+                     reps=5, warmup=1, queued=True)
     phase("qm", t0, (
         f"gto.cu against its plain version on the card: ψ over the {presets[0]} grid "
         f"({int(np.prod(geo['dims']))} voxels) max |Δ| {psi_err:.3g}, at most {psi_ratio:.3g} of "
-        f"its bound 2·K·2⁻²⁴·Σ|φc|; the {presets[0]} density (Φ mode + matmul) {rho_err:.3g} of "
-        f"the largest (tolerance {QM_RTOL:g}); Φ rows of {QM_PHI_CHUNKS} chunks of {samples} "
-        f"voxels of {presets[-1]} at {c0s}: {phi_diff} entries differ from primitive_matrix; ψ "
-        f"there max |Δ| {high_err:.3g}, within its bound; {presets[-1]} HOMO: kernel "
-        f"{ms_kernel:.3f} ms (device, queued), plain version {ms_plain:.2f} ms (events) "
+        f"its bound 2·K·2⁻²⁴·Σ|φc|; ρ: the {presets[0]} density {rho_err:.3g} of the largest "
+        f"(max |Δ| {rho_abs:.3g}, at most {rho_ratio:.3g} of its float32 bound), the "
+        f"{presets[0]} transition density (1 launch, no primitive_matrix build) {rt_err:.3g} "
+        f"(max |Δ| {rt_abs:.3g}, {rt_ratio:.3g} of its bound), {QM_CHUNKS} chunks of {samples} "
+        f"voxels of the {presets[-1]} density at {c0s} {high_rho_err:.3g} (max |Δ| "
+        f"{high_rho_abs:.3g}, {high_rho_ratio:.3g} of its bound), tolerance {QM_RTOL:g}; ψ there "
+        f"max |Δ| {high_err:.3g}, within its bound; two {presets[-1]} density runs bit-equal; "
+        f"{presets[-1]} HOMO: kernel {ms_kernel:.3f} ms (device, queued), plain version "
+        f"{ms_plain:.2f} ms (events); {presets[-1]} density: kernel {ms_rho:.3f} ms (device, "
+        f"queued), plain version {ms_rho_plain:.2f} ms (events) "
         f"({time.perf_counter() - t1:.1f} s)"
     ))
+    high = grids[(presets[-1], "electron_density")]
     out_kernel = dict(launches=main_launches, ms=ms_kernel, plain_ms=ms_plain,
                       bound_ms=grids[(presets[-1], "mo")]["bound_ms"],
                       bound_by=grids[(presets[-1], "mo")]["bound_by"],
                       bound_all_ms=grids[(presets[-1], "mo")]["bound_all_ms"],
                       bound_kernel_ms=grids[(presets[-1], "mo")]["bound_kernel_ms"],
-                      max_abs_err=max(psi_err, high_err))
+                      max_abs_err=max(psi_err, high_err),
+                      density=dict(launches=sum(grids[(p_, "electron_density")]["launches"]
+                                                for p_ in presets),
+                                   ms=ms_rho, plain_ms=ms_rho_plain, bound_ms=high["bound_ms"],
+                                   bound_by=high["bound_by"], bound_all_ms=high["bound_all_ms"],
+                                   bound_kernel_ms=high["bound_kernel_ms"],
+                                   max_abs_err=max(rho_abs, high_rho_abs, rt_abs)))
 
     # the orbital window: the grid, then the ray-march through volume.cu
     (grid, _, _), ms_grid, host_grid = device_and_host_ms(
@@ -2652,7 +2723,7 @@ def qm_phase(dev, n_res: int = QM_RES, presets=QM_PRESETS, orbital_dims: int = Q
 
     # the excited state
     groups = sys_.atom_res_idx
-    out = {}
+    out, gto_calls = {}, {}
     for name, fn in (
         ("transition_density_grid", lambda: vlx.transition_density_grid(0, topo_dims)),
         ("nto_grid", lambda: vlx.nto_grid(0, 0, topo_dims)),
@@ -2661,7 +2732,13 @@ def qm_phase(dev, n_res: int = QM_RES, presets=QM_PRESETS, orbital_dims: int = Q
         ("charge_transfer grid again", lambda: vlx.charge_transfer(0, groups, topo_dims, "grid")),
         ("charge_transfer mulliken", lambda: vlx.charge_transfer(0, groups, method="mulliken")),
     ):
+        n0 = cuda_gto.launches
         out[name] = device_and_host_ms(fn)
+        gto_calls[name] = cuda_gto.launches - n0
+    # a transition density is one ρ launch, the attachment and detachment
+    # densities one each
+    if gto_calls["transition_density_grid"] != 1 or gto_calls["attachment_detachment_grids"] != 2:
+        raise AssertionError(f"excited-state grids: gto launches {gto_calls}")
     ct1, ct2 = out["charge_transfer grid"][0], out["charge_transfer grid again"][0]
     for k in ("hole_per_atom", "part_per_atom", "matrix"):
         if not np.array_equal(ct1[k], ct2[k]):
@@ -2676,7 +2753,8 @@ def qm_phase(dev, n_res: int = QM_RES, presets=QM_PRESETS, orbital_dims: int = Q
     phase("qm", t0, (
         "excited state 0, " + f"{topo_dims}³: " + "; ".join(
             f"{k} ms (events / host) {v[1]:.2f} / {v[2]:.2f}" for k, v in out.items())
-        + f"; grid charges of two CUDA runs bit-equal; hole shares by residue, grid "
+        + f"; gto launches {gto_calls}; grid charges of two CUDA runs bit-equal; hole shares by "
+        + "residue, grid "
         + " ".join(f"{v:.3f}" for v in hole_g) + ", Mulliken "
         + " ".join(f"{v:.3f}" for v in hole_m)
     ))
@@ -4004,6 +4082,21 @@ def main() -> None:
             "bound_by": qm["bound_by"],
             "bound_all_pairs_ms": qm["bound_all_ms"],
             "bound_kernel_pairs_ms": qm["bound_kernel_ms"],
+            "library_ms": None,
+        },
+        {
+            "name": "gto (density mode)",
+            "route": "cuda",
+            "source": "viamd_tpu_torch/csrc/gto.cu",
+            "replaces": "viamd_tpu/ops/gto.py:40",
+            "launches": qm["density"]["launches"],
+            "max_abs_err": qm["density"]["max_abs_err"],
+            "ms": qm["density"]["ms"],
+            "plain_ms": qm["density"]["plain_ms"],
+            "bound_ms": qm["density"]["bound_ms"],
+            "bound_by": qm["density"]["bound_by"],
+            "bound_all_pairs_ms": qm["density"]["bound_all_ms"],
+            "bound_kernel_pairs_ms": qm["density"]["bound_kernel_ms"],
             "library_ms": None,
         },
     ]}))

@@ -1,6 +1,7 @@
 """csrc/gto.cu's design on the CPU: its exact screen, its voxel mapping and
 the routing of ops/gto.py's grid functions; on the card, the kernel
-against its plain version (ops/gto.py::primitive_matrix).
+against its plain version (ops/gto.py::primitive_matrix). The density
+mode's own tests are tests/test_torch_gto_density.py.
 
 The tests marked `requires_cuda` import nothing of the JAX package, so they
 collect on a machine that has a GPU but no JAX:
@@ -10,11 +11,12 @@ Tolerances.
 - The screen (ops/cuda_gto.py::screen_keep): none. Every pair it skips
   must have α·r² ≥ 40 in primitive_matrix's float32 operations, so the
   screened sum equals the unscreened one bit for bit.
-- On the card, Φ mode against primitive_matrix on CUDA tensors: bit for
-  bit (the same operations; expf is what torch.exp calls there). ψ mode
-  against the plain contraction: |Δψ| ≤ 2·K·2⁻²⁴·Σ_k |φ_k·c_k| at each
-  voxel, the sum of both orders' float32 error bounds (the terms φ_k·c_k
-  are the same, only the order of the sum differs).
+- On the card, ψ mode against the plain contraction: |Δψ| ≤
+  2·K·2⁻²⁴·Σ_k |φ_k·c_k| at each voxel, the sum of both orders' float32
+  error bounds (the terms φ_k·c_k are the same: the same operations, and
+  expf is what torch.exp calls there; only the order of the sum differs).
+  ρ mode against the plain Φ @ C: within 2·(2K + M + 8)·2⁻²⁴·Σ_m |w_m|·
+  (|Φ||A|)_m·(|Φ||B|)_m at each voxel (csrc/gto.cu's note).
 """
 
 import numpy as np
@@ -85,8 +87,8 @@ CASES = [
     ("bricks", (9, 24, 7), True, "random"),
     ("bricks", (12, 16, 16), False, "edge"),
     ("bricks", (14, 12, 10), True, "edge"),
-    ("rows", (11, 9, 13), False, "random"),
-    ("rows", (10, 7, 15), True, "edge"),
+    ("rho_bricks", (11, 9, 13), False, "random"),
+    ("rho_bricks", (10, 7, 15), True, "edge"),
 ]
 
 
@@ -99,11 +101,7 @@ def test_screen_is_exact(groups_of, dims, oriented, centres):
     origin, voxel, R = _geometry(seed, dims, oriented)
     pts = TG.grid_points(origin, voxel, dims, R, device="cpu")
     P = pts.shape[0]
-    if groups_of == "bricks":
-        groups = CG.brick_voxels(dims)
-    else:
-        c0 = 37  # a chunk that starts inside a row of z
-        groups = CG.row_tiles(c0, P - c0 - 5)
+    groups = CG.brick_voxels(dims, brick=CG.BRICK if groups_of == "bricks" else CG.RHO_BRICK)
     centers, alphas, lmn, C = _basis(seed, spread=0.3 * max(dims))
     if centres == "edge":
         centers = _edge_of_cutoff(pts, groups, alphas, seed)
@@ -139,26 +137,21 @@ def test_screen_empty_and_point_groups():
     assert torch.equal(keep, want)
 
 
+@pytest.mark.parametrize("brick", ["psi", "rho"])
 @pytest.mark.parametrize("dims", [(4, 8, 8), (5, 9, 3), (17, 1, 30), (1, 1, 1)])
-def test_bricks_cover_each_voxel_once(dims):
-    b = CG.brick_voxels(dims)
-    assert b.shape[1] == int(np.prod(CG.BRICK))
+def test_bricks_cover_each_voxel_once(dims, brick):
+    shape = CG.BRICK if brick == "psi" else CG.RHO_BRICK
+    b = CG.brick_voxels(dims, brick=shape)
+    assert b.shape[1] == int(np.prod(shape))
     v = b[b >= 0]
     assert torch.equal(torch.sort(v).values, torch.arange(int(np.prod(dims))))
-    # each brick is compact: its voxels span at most BRICK in each axis
+    # each brick is compact: its voxels span at most the brick in each axis
     nx, ny, nz = dims
     for g in b[: min(b.shape[0], 20)]:
         g = g[g >= 0]
         ix, iy, iz = g // (ny * nz), (g // nz) % ny, g % nz
-        for a, n in zip((ix, iy, iz), CG.BRICK):
+        for a, n in zip((ix, iy, iz), shape):
             assert int(a.max() - a.min()) < n
-
-
-@pytest.mark.parametrize("c0,n", [(0, 64), (37, 100), (5, 1)])
-def test_row_tiles_cover_rows_once(c0, n):
-    r = CG.row_tiles(c0, n)
-    assert r.shape[1] == CG.ROWS
-    assert torch.equal(r[r >= 0], torch.arange(c0, c0 + n))
 
 
 def test_prim_table_moves_bits():
@@ -195,9 +188,9 @@ def _refuse(*a, **k):
 
 def test_cpu_takes_the_plain_version(monkeypatch):
     """On the CPU the three grid functions build Φ with primitive_matrix
-    and never reach the kernel's wrapper."""
+    and never reach the kernel's wrappers."""
     monkeypatch.setattr(CG, "psi_grid", _refuse)
-    monkeypatch.setattr(CG, "phi_rows", _refuse)
+    monkeypatch.setattr(CG, "rho_grid", _refuse)
     builds = []
     real = TG.primitive_matrix
 
@@ -234,7 +227,7 @@ def test_wrappers_reject_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         CG.psi_grid(tab, grid, (2, 2, 2))
     with pytest.raises(ValueError, match="CUDA"):
-        CG.phi_rows(tab, grid, (2, 2, 2), 0, 8)
+        CG.rho_grid(tab, torch.as_tensor(C), None, torch.ones(1), grid, (2, 2, 2))
 
 
 # -- on the card: the kernel against its plain version -------------------------
@@ -244,21 +237,6 @@ def _card_case(seed, dims, oriented, K=200, M=6):
     centers, alphas, lmn, C = _basis(seed, K=K, spread=0.3 * max(dims), M=M)
     origin, voxel, R = _geometry(seed, dims, oriented)
     return centers, alphas, lmn, C, origin, voxel, R
-
-
-@pytest.mark.requires_cuda
-@pytest.mark.parametrize("dims,oriented", [((21, 18, 23), True), ((16, 16, 16), False)])
-def test_phi_rows_bit_equal(cuda, dims, oriented):
-    centers, alphas, lmn, C, origin, voxel, R = _card_case(11, dims, oriented)
-    b = TG._Basis(centers, alphas, lmn, cuda)
-    tab = CG.prim_table(b.centers, b.exponents, b.lmn)
-    grid = CG.grid_block(origin, voxel, R)
-    pts = TG.grid_points(origin, voxel, dims, R, device=cuda)
-    P = pts.shape[0]
-    for c0, n in ((0, 1000), (333, 2049), (P - 77, 77)):
-        got = CG.phi_rows(tab, grid, dims, c0, n)
-        want = TG.primitive_matrix(pts[c0 : c0 + n], b.centers, b.exponents, b.lmn)
-        assert torch.equal(got, want)
 
 
 @pytest.mark.requires_cuda
@@ -283,6 +261,9 @@ def test_psi_grid_within_its_bound(cuda, dims, oriented):
 
 @pytest.mark.requires_cuda
 def test_density_and_transition_on_the_kernel(cuda, monkeypatch):
+    """density_grid and transition_density_grid on CUDA are one ρ launch
+    each, build no Φ, and hold the plain Φ @ C within ρ's float32 bound at
+    every voxel and within 1e-6 of the largest value."""
     dims = (19, 17, 22)
     centers, alphas, lmn, C, origin, voxel, R = _card_case(13, dims, True)
     T = np.random.RandomState(14).randn(2, 4).astype(np.float32)
@@ -290,20 +271,28 @@ def test_density_and_transition_on_the_kernel(cuda, monkeypatch):
     b = TG._Basis(centers, alphas, lmn, cuda)
     pts = TG.grid_points(origin, voxel, dims, R, device=cuda)
     phi = TG.primitive_matrix(pts, b.centers, b.exponents, b.lmn)
+    K = centers.shape[0]
     keep = torch.as_tensor(np.flatnonzero(occ), device=cuda)
     Cd = torch.as_tensor(C, device=cuda)[:, keep]
+    w = torch.as_tensor(occ[occ != 0], device=cuda)
     psi = phi @ Cd
-    rho_want = (psi * psi * torch.as_tensor(occ[occ != 0], device=cuda)[None, :]).sum(1)
-    monkeypatch.setattr(TG, "CUDA_CHUNK", 3000)  # several Φ launches and a tail
+    rho_want = (psi * psi * w[None, :]).sum(1)
+    mag = ((phi.abs() @ Cd.abs()) ** 2 * w[None, :]).sum(1)
+    builds = []
+    real = TG.primitive_matrix
+    monkeypatch.setattr(TG, "primitive_matrix", lambda *a, **k: builds.append(1) or real(*a, **k))
     launches = CG.launches
     rho = TG.density_grid(centers, alphas, C, lmn, origin, voxel, dims, occupations=occ,
                           orientation=R, device=cuda).reshape(-1)
-    assert CG.launches == launches + -(-pts.shape[0] // 3000)
-    # Φ is bit-equal, so each chunk's product is the plain one's up to
-    # cuBLAS's choice of kernel for the shape
+    assert CG.launches == launches + 1 and not builds
+    assert bool(((rho - rho_want).abs() <= 2 * (2 * K + Cd.shape[1] + 8) * U * mag).all())
     assert float((rho - rho_want).abs().max()) <= 1e-6 * float(rho_want.abs().max())
     Ct = torch.as_tensor(C, device=cuda)
-    rt_want = ((phi @ Ct[:, :2]) @ torch.as_tensor(T, device=cuda) * (phi @ Ct[:, 2:])).sum(1)
+    Tt = torch.as_tensor(T, device=cuda)
+    rt_want = ((phi @ Ct[:, :2]) @ Tt * (phi @ Ct[:, 2:])).sum(1)
+    rt_mag = (((phi.abs() @ Ct[:, :2].abs()) @ Tt.abs()) * (phi.abs() @ Ct[:, 2:].abs())).sum(1)
     rt = TG.transition_density_grid(centers, alphas, C[:, :2], C[:, 2:], T, lmn, origin, voxel,
                                     dims, orientation=R, device=cuda).reshape(-1)
+    assert CG.launches == launches + 2 and not builds
+    assert bool(((rt - rt_want).abs() <= 2 * (2 * K + 2 + 4 + 8) * U * rt_mag).all())
     assert float((rt - rt_want).abs().max()) <= 1e-6 * float(rt_want.abs().max())

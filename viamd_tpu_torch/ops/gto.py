@@ -12,15 +12,16 @@ against coefficient columns: Σ φ·c for one orbital (`_contract`), `Φ @ C`
 (torch.matmul, float32 — TF32 stays off, as PyTorch leaves it) for many.
 
 The grid functions route by device. On a CUDA device they run
-csrc/gto.cu (ops/cuda_gto.py), which screens out, per block of voxels,
-the primitives that add exactly 0 there:
+csrc/gto.cu (ops/cuda_gto.py), which screens out, per brick of voxels
+(4×8×8 for ψ, 4×4×4 for ρ), the primitives that add exactly 0 there, and
+never writes Φ to device memory:
 - `eval_gto_grid` (one orbital: the HOMO, NTO and orbital-view grids) is
-  one ψ launch over the whole grid; no Φ is built;
-- `density_grid` and `transition_density_grid` take Φ from one Φ launch
-  per chunk of CUDA_CHUNK voxels (65,536: Φ is 247 MB at K = 944; the
-  chunk bounds memory only) and contract it with torch.matmul; one Φ per
-  chunk serves every contraction of that chunk (the JAX
-  `transition_density_grid` builds Φ twice).
+  one ψ launch over the whole grid;
+- `density_grid` is one ρ launch, ρ = Σ_m occ_m·(ΦC)_m², over the
+  occupied columns;
+- `transition_density_grid` is one ρ launch, ρ = Σ_a (Φ·C_occ·T)_a·
+  (Φ·C_virt)_a, after the small product C_occ·T (torch.matmul, K × nocc ×
+  nvirt) on the device.
 On a CPU device they take the plain version over chunks of `chunk`
 voxels (CHUNK, 8,192, as in the JAX package), with an exact tail instead
 of a padded last chunk; `chunk` is the plain version's alone.
@@ -49,7 +50,6 @@ from viamd_tpu_torch.ops.density import scaled_fixed_point_sum
 from viamd_tpu_torch.ops.rdf import sqrt_rn
 
 CHUNK = 8192  # voxels a Φ of the plain version, as in the JAX package
-CUDA_CHUNK = 65536  # voxels a Φ launch on CUDA: bounds memory only (247 MB at K = 944)
 
 
 def _f32(a, device) -> torch.Tensor:
@@ -148,23 +148,6 @@ def _over_chunks(fn, origin, voxel, dims, orientation, chunk: int, device) -> to
     return out.reshape(*(int(d) for d in dims))
 
 
-def _phi_chunks(basis: _Basis, fn, origin, voxel, dims, orientation, chunk, dev) -> torch.Tensor:
-    """fn(Φ of one chunk) → (n,) values, over the grid's voxels in chunks →
-    (nx, ny, nz): Φ from the kernel on CUDA (chunks of CUDA_CHUNK), from
-    the plain version on the CPU (chunks of `chunk`)."""
-    if not _kernel_route(dev):
-        return _over_chunks(lambda b: fn(basis.phi(b)), origin, voxel, dims, orientation,
-                            chunk, dev)
-    table = cuda_gto.prim_table(basis.centers, basis.exponents, basis.lmn)
-    grid = cuda_gto.grid_block(origin, voxel, orientation)
-    P = int(np.prod([int(d) for d in dims]))
-    out = torch.empty(P, dtype=torch.float32, device=dev)
-    for c0 in range(0, P, CUDA_CHUNK):
-        n = min(CUDA_CHUNK, P - c0)
-        out[c0 : c0 + n] = fn(cuda_gto.phi_rows(table, grid, dims, c0, n))
-    return out.reshape(*(int(d) for d in dims))
-
-
 def eval_gto_grid(centers, exponents, coeffs, lmn, origin, voxel, dims, chunk: int = CHUNK,
                   orientation=None, *, device) -> torch.Tensor:
     """One orbital ((K,) coeffs) on a voxel grid → (nx, ny, nz) tensor on
@@ -187,7 +170,8 @@ def density_grid(centers, exponents, mo_coeffs, lmn, origin, voxel, dims, occupa
     """Electron density ρ = Σ_mo occ·ψ_mo² on a grid (the electron-density
     window). mo_coeffs: (K, M); occupations: (M,) host values (2 each when
     None). Columns of occupation exactly 0 are left out of the product.
-    `chunk`: voxels a Φ of the plain version (the CPU); CUDA_CHUNK on CUDA."""
+    On CUDA one ρ launch of csrc/gto.cu; on the CPU the plain version,
+    Φ @ C in chunks of `chunk` voxels."""
     dev = torch.device(device)
     C = _f32(mo_coeffs, dev)
     if occupations is None:
@@ -201,27 +185,40 @@ def density_grid(centers, exponents, mo_coeffs, lmn, origin, voxel, dims, occupa
         occ = occ[keep]
     occ_t = torch.as_tensor(occ, device=dev)
     basis = _Basis(centers, exponents, lmn, dev)
+    if _kernel_route(dev):
+        table = cuda_gto.prim_table(basis.centers, basis.exponents, basis.lmn)
+        return cuda_gto.rho_grid(table, C.contiguous(), None, occ_t,
+                                 cuda_gto.grid_block(origin, voxel, orientation), dims)
 
-    def rho(phi):
-        psi = phi @ C
+    def rho(block):
+        psi = basis.phi(block) @ C
         return (psi * psi * occ_t[None, :]).sum(1)
 
-    return _phi_chunks(basis, rho, origin, voxel, dims, orientation, chunk, dev)
+    return _over_chunks(rho, origin, voxel, dims, orientation, chunk, dev)
 
 
 def transition_density_grid(centers, exponents, C_occ, C_virt, T, lmn, origin, voxel, dims,
                             chunk: int = CHUNK, orientation=None, *, device) -> torch.Tensor:
     """One-particle transition density ρ_T(r) = Σ_ia T_ia ψ_i(r) ψ_a(r) on a
     grid (the transition analysis window). C_occ: (K, nocc), C_virt:
-    (K, nvirt) primitive-expanded MOs, T: (nocc, nvirt) amplitudes."""
+    (K, nvirt) primitive-expanded MOs, T: (nocc, nvirt) amplitudes. On
+    CUDA one ρ launch of csrc/gto.cu on A = C_occ·T and B = C_virt; on the
+    CPU the plain version, (Φ @ C_occ) @ T · (Φ @ C_virt) in chunks of
+    `chunk` voxels."""
     dev = torch.device(device)
     Co, Cv, Tt = _f32(C_occ, dev), _f32(C_virt, dev), _f32(T, dev)
     basis = _Basis(centers, exponents, lmn, dev)
+    if _kernel_route(dev):
+        table = cuda_gto.prim_table(basis.centers, basis.exponents, basis.lmn)
+        ones = torch.ones(Cv.shape[1], dtype=torch.float32, device=dev)
+        return cuda_gto.rho_grid(table, Co @ Tt, Cv.contiguous(), ones,
+                                 cuda_gto.grid_block(origin, voxel, orientation), dims)
 
-    def rho_t(phi):
+    def rho_t(block):
+        phi = basis.phi(block)
         return ((phi @ Co) @ Tt * (phi @ Cv)).sum(1)
 
-    return _phi_chunks(basis, rho_t, origin, voxel, dims, orientation, chunk, dev)
+    return _over_chunks(rho_t, origin, voxel, dims, orientation, chunk, dev)
 
 
 def grid_winners(grid_shape, origin, voxel, atom_xyz, radii=None, chunk: int = CHUNK, *,

@@ -8,7 +8,8 @@ builtin's accumulation; default script
 `pair_dist_histogram_scatter_idx` is the plain PyTorch version of the
 cell-list pair-histogram kernel (ops/cuda_rdf.py, csrc/pair_hist.cu): the
 same histogram over all A×B pairs, tiled on the A side. It is the reference
-the kernel is held to, and the route a CPU tensor takes.
+the kernel is held to, and the route a CPU tensor takes. `rdf_frames` sums
+it over a batch of frames.
 """
 
 from __future__ import annotations
@@ -196,6 +197,37 @@ def pair_dist_histogram_dynamic(
     )
     pairs = w_a.to(torch.float32).sum() * w_b.to(torch.float32).sum()
     return hist / pairs.clamp_min(1.0)
+
+
+def rdf_frames(
+    coords: torch.Tensor,  # (F, n, 3)
+    w_a: torch.Tensor,  # (n,) dense A weights
+    w_b: torch.Tensor,  # (n,) dense B weights
+    basis: torch.Tensor,  # (3, 3), or (F, 3, 3) one a frame
+    inv_basis: torch.Tensor,
+    nbins: int,
+    r_max: float,
+) -> torch.Tensor:
+    """Weighted pair histogram summed over a batch of frames → (nbins,) f32.
+
+    Counterpart of viamd_tpu.ops.rdf.rdf_frames (a vmap of its dense
+    pair_dist_histogram, summed). Each frame goes through
+    `pair_dist_histogram_scatter_idx` over the atoms whose weight is not 0
+    (pair (i, j) adds w_a[i]·w_b[j]; i = j skipped), and the frames' histograms
+    are added in frame order. A (3, 3) basis serves every frame. The JAX
+    function bins by comparing each distance with the bin edges, this one by
+    int(dist·nbins/r_max), so a distance within rounding of an edge can fall
+    in the neighbouring bin."""
+    idx_a = torch.nonzero(w_a).flatten()
+    idx_b = torch.nonzero(w_b).flatten()
+    wa, wb = w_a[idx_a], w_b[idx_b]
+    hist = torch.zeros(nbins, dtype=torch.float32, device=coords.device)
+    for f in range(coords.shape[0]):
+        b, ib = (basis, inv_basis) if basis.ndim == 2 else (basis[f], inv_basis[f])
+        hist = hist + pair_dist_histogram_scatter_idx(
+            coords[f], idx_a, idx_b, wa, wb, b, ib, nbins, r_max
+        )
+    return hist
 
 
 def rdf_normalize(

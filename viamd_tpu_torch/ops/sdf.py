@@ -26,6 +26,7 @@ order:
   targets in cell order (ascending target index), so a cell holding more
   drops the rest — then globally the first `compact_cap` in-support slots
   in slot order.
+`sdf_frames` sums the dense route over a batch of frames.
 Ranks are int32 cumsums and the compaction a scatter, in place of the
 JAX package's triangle-matmul rank select. The host-side sizers, stencils
 and `make_structure_inputs` are numpy copies.
@@ -182,6 +183,34 @@ def sdf_accumulate(
         grid += splat_trilinear(
             p.reshape(-1, 3), twt.repeat(p.shape[0]), (dims, dims, dims),
             origin, voxel,
+        )
+    return grid
+
+
+def sdf_frames(
+    coords: torch.Tensor,  # (F, n, 3)
+    target_w: torch.Tensor,  # (n,) dense target weights
+    struct_idx: torch.Tensor,  # (S, K)
+    struct_w: torch.Tensor,  # (S, K)
+    ref_centered: torch.Tensor,  # (S, K, 3)
+    extent: float,
+    dims: int,
+    basis: torch.Tensor,  # (3, 3), or (F, 3, 3) one a frame
+    inv_basis: torch.Tensor,
+) -> torch.Tensor:
+    """SDF grid summed over a batch of frames → (dims, dims, dims).
+
+    Counterpart of viamd_tpu.ops.sdf.sdf_frames (a vmap of its dense
+    sdf_accumulate, summed): `sdf_accumulate` on each frame over the atoms
+    whose target weight is not 0, the frames' grids added in frame order. A
+    (3, 3) basis serves every frame."""
+    idx_t = torch.nonzero(target_w).flatten()
+    grid = torch.zeros((dims, dims, dims), dtype=torch.float32, device=coords.device)
+    for f in range(coords.shape[0]):
+        b, ib = (basis, inv_basis) if basis.ndim == 2 else (basis[f], inv_basis[f])
+        grid = grid + sdf_accumulate(
+            coords[f], target_w, struct_idx, struct_w, ref_centered, extent, dims, b, ib,
+            idx_t,
         )
     return grid
 
