@@ -165,15 +165,17 @@ def test_selection_suggestions_match_jax(systems, expr):
 
 
 def test_tracing_sections_nest():
-    """TestTracing::test_sections_nest, and a report of the same form."""
+    """TestTracing::test_sections_nest, and a report whose columns the JAX
+    tracer has (section, calls) read the same."""
     from viamd_tpu.core.tracing import Tracer as JTracer
 
     reports = []
-    for tr in (PT.Tracer(device="cpu"), JTracer()):
+    for tr in (PT.Tracer(), JTracer()):
+        tr.enabled = True
         with tr.section("outer"):
             with tr.section("inner"):
                 pass
-            with tr.section("inner", device=True):
+            with tr.section("inner"):
                 pass
         stats = tr.stats()
         assert stats["outer"].calls == 1 and stats["outer/inner"].calls == 2
@@ -182,36 +184,11 @@ def test_tracing_sections_nest():
         tr.reset()
         assert tr.stats() == {}
     assert reports[0] == reports[1]
-    tr = PT.Tracer(device="cpu")
+    tr = PT.Tracer()
     tr.enabled = False
     with tr.section("off"):
         pass
     assert tr.stats() == {}
-
-
-def test_tracing_fence(monkeypatch):
-    """A device section waits on a CUDA tracer's device, never on a CPU
-    tracer's; a fence that fails raises (after the span is recorded)."""
-    calls = []
-    monkeypatch.setattr(torch.cuda, "synchronize", lambda d=None: calls.append(d))
-    tr = PT.Tracer(device="cuda:0")
-    with tr.section("k", device=True):
-        pass
-    with tr.section("host"):
-        pass
-    assert calls == [torch.device("cuda:0")]
-    with PT.Tracer(device="cpu").section("k", device=True):
-        pass
-    assert len(calls) == 1
-
-    def broken(d=None):
-        raise RuntimeError("device lost")
-
-    monkeypatch.setattr(torch.cuda, "synchronize", broken)
-    with pytest.raises(RuntimeError, match="device lost"):
-        with tr.section("k", device=True):
-            pass
-    assert tr.stats()["k"].calls == 2
 
 
 def _segments(n_seg=12, per=40, seed=0):

@@ -41,6 +41,7 @@ from viamd_tpu_torch.app.events import EventBus, EventType
 from viamd_tpu_torch.app.tasks import TaskSystem
 from viamd_tpu_torch.core.bitfield import Bitfield
 from viamd_tpu_torch.core.system import System
+from viamd_tpu_torch.core.tracing import section, traced
 from viamd_tpu_torch.core.unitcell import UnitCell
 from viamd_tpu_torch.eval import EvalResult, Evaluator
 from viamd_tpu_torch.io import load_file
@@ -390,6 +391,7 @@ class Session:
             return self.system.cell
         return self.trajectory.load_frame(int(self.frame))[1]
 
+    @traced("session.set_frame")
     def set_frame(self, frame: float):
         self.frame = frame
         self.events.broadcast(EventType.SYSTEM_STATE_CHANGED, self)
@@ -508,6 +510,7 @@ class Session:
             self.script_errors = [str(e)]
             return False
 
+    @traced("evaluate")
     def evaluate(
         self,
         frame_range=None,
@@ -524,27 +527,28 @@ class Session:
         device `mesh` (parallel.frames_mesh; the session's device is the
         rank's), every rank of it calls this together and gets the same
         result."""
-        # recompile on ANY fingerprint change — text edits, but also a
-        # newly loaded system or mutated stored selections (the reference
-        # sets script.compile_ir on SystemInit, viamd.cpp:565): evaluating
-        # an IR compiled against a previous system would use stale gather
-        # indices silently
-        if self.compiled is None or self._compiled_fp != self._script_fingerprint():
-            if not self.compile_script():
-                raise ScriptError(self.script_errors[0])
-        traj = self.trajectory
-        if traj is None:
-            from viamd_tpu_torch.io.trajectory import InMemoryTrajectory
+        with section("eval.build"):
+            # recompile on ANY fingerprint change — text edits, but also a
+            # newly loaded system or mutated stored selections (the
+            # reference sets script.compile_ir on SystemInit,
+            # viamd.cpp:565): evaluating an IR compiled against a previous
+            # system would use stale gather indices silently
+            if self.compiled is None or self._compiled_fp != self._script_fingerprint():
+                if not self.compile_script():
+                    raise ScriptError(self.script_errors[0])
+            traj = self.trajectory
+            if traj is None:
+                from viamd_tpu_torch.io.trajectory import InMemoryTrajectory
 
-            traj = InMemoryTrajectory(self.system.coords()[None], cell=self.system.cell)
-        self.events.broadcast(EventType.EVAL_STARTED, self)
+                traj = InMemoryTrajectory(self.system.coords()[None], cell=self.system.cell)
+            self.events.broadcast(EventType.EVAL_STARTED, self)
+            ev = Evaluator(self.compiled, traj, chunk=chunk, mesh=mesh)
 
         def prog(f):
             self.events.broadcast(EventType.EVAL_PROGRESS, f)
             if progress:
                 progress(f)
 
-        ev = Evaluator(self.compiled, traj, chunk=chunk, mesh=mesh)
         res = ev.run(frame_range=frame_range, progress=prog, interrupt=interrupt)
         if filtered:
             self.filtered_result = res
@@ -764,6 +768,7 @@ class Session:
         src_t = torch.as_tensor(np.asarray(src, np.int32), device=p.device)
         return torch.where(p >= 0, src_t[p.clamp_min(0).long()], torch.full_like(p, -1))
 
+    @traced("render")
     def render(
         self,
         width: int = 512,
@@ -803,41 +808,45 @@ class Session:
 
         dev = self.device
         sys = self.system
-        coords = self.device_coords()
-        cam = self._camera()
         reps = (
             [self.representations[rep_index]]
             if rep_index is not None
             else [r for r in self.representations if r.enabled]
         )
-        # host coordinates only where host code needs them
-        need_host = show_script_vis or any(
-            r.dynamic or r.type in ("tube", "ribbons", "cartoon")
-            for r in reps
-        ) or (sys.instances is not None and sys.instances.nontrivial)
-        coords_np = np.array(coords.cpu()) if need_host else None
+        with section("render.coords"):
+            coords = self.device_coords()
+            # host coordinates only where host code needs them
+            need_host = show_script_vis or any(
+                r.dynamic or r.type in ("tube", "ribbons", "cartoon")
+                for r in reps
+            ) or (sys.instances is not None and sys.instances.nontrivial)
+            coords_np = np.array(coords.cpu()) if need_host else None
+        cam = self._camera()
         img = depth = pick = None
         transparent = []
         ss_w = None
         for rep in reps:
-            if rep.dynamic:
-                # dynamic filters (within/x/y/z) track the playback frame
-                try:
-                    rep.mask, _ = self._filter(rep.filter, coords=coords_np)
-                except ScriptError:
-                    pass
-            if rep.color_mapping == "secondary_structure" or rep.type in (
-                "tube", "ribbons", "cartoon",
-            ):
-                from viamd_tpu_torch.render.backbone_rep import current_ss_weights
+            with section("render.colors"):
+                if rep.dynamic:
+                    # dynamic filters (within/x/y/z) track the playback frame
+                    try:
+                        rep.mask, _ = self._filter(rep.filter, coords=coords_np)
+                    except ScriptError:
+                        pass
+                if rep.color_mapping == "secondary_structure" or rep.type in (
+                    "tube", "ribbons", "cartoon",
+                ):
+                    from viamd_tpu_torch.render.backbone_rep import current_ss_weights
 
-                ss_w = (
-                    current_ss_weights(sys, coords, device=dev).cpu().numpy()
-                    if sys.backbone is not None
-                    else None
-                )
-            cols = self._rep_colors(rep, ss_w, show_selection)
-            out = self._draw_rep(rep, cols, coords, coords_np, ss_w, cam, width, height, jitter)
+                    ss_w = (
+                        current_ss_weights(sys, coords, device=dev).cpu().numpy()
+                        if sys.backbone is not None
+                        else None
+                    )
+                cols = self._rep_colors(rep, ss_w, show_selection)
+            with section("render.draw"):
+                out = self._draw_rep(rep, cols, coords, coords_np, ss_w, cam, width, height,
+                                     jitter)
             if out is None:
                 continue
             rgba, d, p = out
@@ -846,58 +855,65 @@ class Session:
             elif img is None:
                 img, depth, pick = rgba, d, p
             else:  # depth-composite subsequent opaque reps
-                closer = d < depth
-                img = torch.where(closer[..., None], rgba, img)
-                pick = torch.where(closer, p, pick)
-                depth = torch.minimum(depth, d)
-        # transparent pass (the reference's RenderTransparent stage,
-        # main.cpp:6612-6700): blend where the transparent rep is nearer
-        # than the opaque depth; picking/depth stay opaque-only
-        for a, rgba, d, p in transparent:
-            if img is None:
-                img = torch.cat([rgba[..., :3] * a, rgba[..., 3:] * a], dim=-1)
-                depth = torch.full(d.shape, float("inf"), dtype=torch.float32, device=dev)
-                pick = torch.full(d.shape, -1, dtype=torch.int32, device=dev)
-                continue
-            vis = (rgba[..., 3] > 0) & (d < depth)
-            w = (a * vis).to(torch.float32)[..., None]
-            img = torch.cat(
-                [rgba[..., :3] * w + img[..., :3] * (1 - w), torch.maximum(img[..., 3:], w)],
-                dim=-1,
-            )
-        # overlay pass: simulation box, script geometry, user primitives
-        q = overlay if overlay is not None else OverlayQueue()
-        if show_box and sys.cell.is_periodic:
-            q.add_box(np.asarray(sys.cell.basis))
-        if show_script_vis and self.compiled is not None:
-            q.add_script_visualization(self.compiled.visualization, coords_np)
-        if not q.is_empty():
-            o_img, o_depth, o_pick = q.render(
-                cam.view_matrix(), cam.proj_matrix(width, height, jitter), width, height,
-                device=dev,
-            )
-            if img is None:
-                img, depth, pick = o_img, o_depth, o_pick
-            else:
-                closer = o_depth < depth
-                img = torch.where(closer[..., None], o_img, img)
-                pick = torch.where(closer, o_pick, pick)
-                depth = torch.minimum(depth, o_depth)
-        if show_selection and img is not None and self.selection and self.selection.popcount():
-            img = self._draw_selection_outline(img, pick, self.selection)
-        if show_selection and img is not None and self.highlight and self.highlight.popcount():
-            img = self._draw_selection_outline(img, pick, self.highlight, color=(1.0, 0.85, 0.3))
+                with section("render.composite"):
+                    closer = d < depth
+                    img = torch.where(closer[..., None], rgba, img)
+                    pick = torch.where(closer, p, pick)
+                    depth = torch.minimum(depth, d)
+        with section("render.composite"):
+            # transparent pass (the reference's RenderTransparent stage,
+            # main.cpp:6612-6700): blend where the transparent rep is nearer
+            # than the opaque depth; picking/depth stay opaque-only
+            for a, rgba, d, p in transparent:
+                if img is None:
+                    img = torch.cat([rgba[..., :3] * a, rgba[..., 3:] * a], dim=-1)
+                    depth = torch.full(d.shape, float("inf"), dtype=torch.float32, device=dev)
+                    pick = torch.full(d.shape, -1, dtype=torch.int32, device=dev)
+                    continue
+                vis = (rgba[..., 3] > 0) & (d < depth)
+                w = (a * vis).to(torch.float32)[..., None]
+                img = torch.cat(
+                    [rgba[..., :3] * w + img[..., :3] * (1 - w), torch.maximum(img[..., 3:], w)],
+                    dim=-1,
+                )
+            # overlay pass: simulation box, script geometry, user primitives
+            q = overlay if overlay is not None else OverlayQueue()
+            if show_box and sys.cell.is_periodic:
+                q.add_box(np.asarray(sys.cell.basis))
+            if show_script_vis and self.compiled is not None:
+                q.add_script_visualization(self.compiled.visualization, coords_np)
+            if not q.is_empty():
+                o_img, o_depth, o_pick = q.render(
+                    cam.view_matrix(), cam.proj_matrix(width, height, jitter), width, height,
+                    device=dev,
+                )
+                if img is None:
+                    img, depth, pick = o_img, o_depth, o_pick
+                else:
+                    closer = o_depth < depth
+                    img = torch.where(closer[..., None], o_img, img)
+                    pick = torch.where(closer, o_pick, pick)
+                    depth = torch.minimum(depth, o_depth)
+        with section("render.outline"):
+            if show_selection and img is not None and self.selection and self.selection.popcount():
+                img = self._draw_selection_outline(img, pick, self.selection)
+            if show_selection and img is not None and self.highlight and self.highlight.popcount():
+                img = self._draw_selection_outline(img, pick, self.highlight,
+                                                   color=(1.0, 0.85, 0.3))
         if volume and img is not None:
-            img = self._render_volume_inscene(volume, img, depth, width, height, jitter)
+            with section("render.volume"):
+                img = self._render_volume_inscene(volume, img, depth, width, height, jitter)
         if postprocess and img is not None:
             from viamd_tpu_torch.render import postprocess as pp
 
-            settings = (
-                postprocess if isinstance(postprocess, pp.PostprocessSettings)
-                else pp.PostprocessSettings()
-            )
-            rgb = pp.execute(img, depth, settings, proj=_f32(cam.proj_matrix(width, height, jitter)))
-            img = torch.cat([rgb, torch.ones_like(rgb[..., :1])], dim=-1)
+            with section("render.postprocess"):
+                settings = (
+                    postprocess if isinstance(postprocess, pp.PostprocessSettings)
+                    else pp.PostprocessSettings()
+                )
+                rgb = pp.execute(img, depth, settings,
+                                 proj=_f32(cam.proj_matrix(width, height, jitter)))
+                img = torch.cat([rgb, torch.ones_like(rgb[..., :1])], dim=-1)
         self.events.broadcast(EventType.RENDER, self)
         return img, depth, pick
 

@@ -58,6 +58,7 @@ import numpy as np
 import torch
 
 from viamd_tpu_torch.core.bitfield import Bitfield
+from viamd_tpu_torch.core.tracing import section, traced
 from viamd_tpu_torch.io.trajectory import DeviceTrajectory, Trajectory
 from viamd_tpu_torch.ops.neighbors import diagonal_cells, perpendicular_widths
 from viamd_tpu_torch.ops.pbc import inv_basis_of
@@ -98,6 +99,7 @@ class EvalResult:
             leaves += list(chunk.values())
         return leaves
 
+    @traced("result.force")
     def force(self) -> float:
         """Wait for all device work behind this result; returns a checksum
         (the sum of every value)."""
@@ -406,22 +408,24 @@ class Evaluator:
                     interrupted = True
                     break
                 if pos.size:
-                    xs = None if stream is None else stream.next()[1]
-                    rows, chunk_sum = [], None
-                    for j, fi in enumerate(indices[pos]):
-                        fi = int(fi)
-                        x = traj.stack[fi] if xs is None else xs[j]
-                        t, a = frame_fn(x, self._cells[fi], self._inv[fi])
-                        rows.append(t)
-                        chunk_sum = (
-                            a if chunk_sum is None
-                            else {n: chunk_sum[n] + a[n] for n in a}
-                        )
-                    t_chunks.append({n: torch.stack([r[n] for r in rows]) for n in rows[0]})
-                    if acc is None:
-                        acc = {n: torch.zeros_like(v, dtype=torch.float32)
-                               for n, v in chunk_sum.items()}
-                    acc = {n: acc[n] + chunk_sum[n] for n in acc}
+                    with section("eval.chunk"):
+                        xs = None if stream is None else stream.next()[1]
+                        rows, chunk_sum = [], None
+                        for j, fi in enumerate(indices[pos]):
+                            fi = int(fi)
+                            x = traj.stack[fi] if xs is None else xs[j]
+                            with section("eval.frame"):
+                                t, a = frame_fn(x, self._cells[fi], self._inv[fi])
+                            rows.append(t)
+                            chunk_sum = (
+                                a if chunk_sum is None
+                                else {n: chunk_sum[n] + a[n] for n in a}
+                            )
+                        t_chunks.append({n: torch.stack([r[n] for r in rows]) for n in rows[0]})
+                        if acc is None:
+                            acc = {n: torch.zeros_like(v, dtype=torch.float32)
+                                   for n, v in chunk_sum.items()}
+                        acc = {n: acc[n] + chunk_sum[n] for n in acc}
                     evaluated.append(pos)
                 done += chunk_idx.size
                 if progress is not None:
@@ -429,29 +433,30 @@ class Evaluator:
         finally:
             if stream is not None:
                 stream.close()
-        if mesh is not None:
-            pos = np.concatenate(evaluated) if evaluated else np.zeros(0, np.int64)
-            t_chunks, acc = self._combine(pos, t_chunks, acc)
-        acc = acc or {}
-        completed = indices[:done]
-        frame_mask = Bitfield(traj.num_frames)
-        for fi in completed:
-            frame_mask.set_bit(int(fi))
-        result = EvalResult(
-            frame_indices=completed,
-            times=np.asarray(traj.frame_times)[completed],
-            frame_mask=frame_mask,
-            properties=self.compiled.properties,
-            n_frames_done=done,
-            interrupted=interrupted,
-            _temporal_dev=t_chunks,
-            _dist_dev={k: v for k, v in acc.items() if v.ndim == 1},
-            _vol_dev={k: v for k, v in acc.items() if v.ndim > 1},
-            fingerprint=next(_eval_generation),
-        )
-        if resume_from is not None:
-            result = merge_results(resume_from, result)
-        return result
+        with section("eval.result"):
+            if mesh is not None:
+                pos = np.concatenate(evaluated) if evaluated else np.zeros(0, np.int64)
+                t_chunks, acc = self._combine(pos, t_chunks, acc)
+            acc = acc or {}
+            completed = indices[:done]
+            frame_mask = Bitfield(traj.num_frames)
+            for fi in completed:
+                frame_mask.set_bit(int(fi))
+            result = EvalResult(
+                frame_indices=completed,
+                times=np.asarray(traj.frame_times)[completed],
+                frame_mask=frame_mask,
+                properties=self.compiled.properties,
+                n_frames_done=done,
+                interrupted=interrupted,
+                _temporal_dev=t_chunks,
+                _dist_dev={k: v for k, v in acc.items() if v.ndim == 1},
+                _vol_dev={k: v for k, v in acc.items() if v.ndim > 1},
+                fingerprint=next(_eval_generation),
+            )
+            if resume_from is not None:
+                result = merge_results(resume_from, result)
+            return result
 
     def _stop(self, interrupt) -> bool:
         """Whether to stop before the next chunk: `interrupt()`, on a mesh

@@ -37,6 +37,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from viamd_tpu_torch.core.tracing import section
 from viamd_tpu_torch.ops.density import splat_trilinear
 from viamd_tpu_torch.ops.neighbors import (
     build_cell_list,
@@ -125,27 +126,29 @@ def sdf_accumulate_pairs(
     n_t, S = int(idx_t.shape[0]), int(struct_idx.shape[0])
     if n_t == 0 or S == 0:
         return torch.zeros((dims, dims, dims), dtype=torch.float32, device=x.device)
-    xt = x[idx_t]
-    twt = target_w[idx_t]
-    R, c = sdf_reference_frames(
-        x, struct_idx, struct_w, ref_centered, basis, inv_basis
-    )
-    origin, voxel, voxel_w = _grid_frame(extent, dims, x.device)
-    sup = 1.7320508 * (extent + 0.5 * voxel_w) + 1e-4
-
-    # (S, n_t) min-image distance² in the JAX package's form: cartesian
-    # difference minus the rounded fractional shift mapped back
-    d = xt[None, :, :] - c[:, None, :]
-    dd = d - torch.round(d @ inv_basis) @ basis
-    m = (twt[None, :] > 0.0) & ((dd * dd).sum(-1) < sup * sup)
-
-    src, keep = compact_first(m, pair_cap)  # (S, C)
-    w = torch.where(keep, twt[src], torch.zeros_like(twt[src]))
-    p = min_image(xt[src] - c[:, None, :], basis, inv_basis) @ R.mT
-    pf, wf = _compact_support(
-        p.reshape(-1, 3), w.reshape(-1), extent, voxel_w, compact_cap
-    )
-    return splat_trilinear(pf, wf, (dims, dims, dims), origin, voxel)
+    with section("sdf.frames"):
+        R, c = sdf_reference_frames(
+            x, struct_idx, struct_w, ref_centered, basis, inv_basis
+        )
+    with section("sdf.cover"):
+        xt = x[idx_t]
+        twt = target_w[idx_t]
+        origin, voxel, voxel_w = _grid_frame(extent, dims, x.device)
+        sup = 1.7320508 * (extent + 0.5 * voxel_w) + 1e-4
+        # (S, n_t) min-image distance² in the JAX package's form: cartesian
+        # difference minus the rounded fractional shift mapped back
+        d = xt[None, :, :] - c[:, None, :]
+        dd = d - torch.round(d @ inv_basis) @ basis
+        m = (twt[None, :] > 0.0) & ((dd * dd).sum(-1) < sup * sup)
+    with section("sdf.compact"):
+        src, keep = compact_first(m, pair_cap)  # (S, C)
+        w = torch.where(keep, twt[src], torch.zeros_like(twt[src]))
+        p = min_image(xt[src] - c[:, None, :], basis, inv_basis) @ R.mT
+        pf, wf = _compact_support(
+            p.reshape(-1, 3), w.reshape(-1), extent, voxel_w, compact_cap
+        )
+    with section("sdf.splat"):
+        return splat_trilinear(pf, wf, (dims, dims, dims), origin, voxel)
 
 
 def sdf_accumulate(

@@ -21,6 +21,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from viamd_tpu_torch.core.tracing import section
 from viamd_tpu_torch.render.bokeh import bokeh_dof
 from viamd_tpu_torch.render.fxaa import _luma, fxaa311
 from viamd_tpu_torch.render.hbao import hbao
@@ -388,7 +389,14 @@ def execute(
     s = settings
     rgba = torch.as_tensor(rgba)
     depth = torch.as_tensor(view_depth, device=rgba.device)
-    ao = ambient_occlusion(depth, s, proj, ortho) if s.enable_ssao else None
+    ao = None
+    if s.enable_ssao:
+        with section("pp.ao"):
+            ao = ambient_occlusion(depth, s, proj, ortho)
     if s.enable_dof or (s.enable_motion_blur and velocity is not None):
-        rgba, ao = lens_passes(rgba, ao, depth, s, velocity), None
-    return antialias(tonemap_compose(rgba, ao, s), s)
+        with section("pp.lens"):
+            rgba, ao = lens_passes(rgba, ao, depth, s, velocity), None
+    with section("pp.tonemap"):
+        rgb = tonemap_compose(rgba, ao, s)
+    with section("pp.antialias"):
+        return antialias(rgb, s)

@@ -31,6 +31,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from viamd_tpu_torch.core.tracing import section
 from viamd_tpu_torch.ops.rdf import sqrt_rn
 from viamd_tpu_torch.render.cuda_raster import (
     TILE,
@@ -307,7 +308,8 @@ def render_molecules(
     ((H, W, 4) rgba, (H, W) view depth, (H, W) int32 picks) as tensors on
     `device`. A pick is the atom id of the nearest hit, -1 where nothing is
     hit — the reference's GBuffer picking attachment (viamd.h:1687-1760)."""
-    return render_scene(
-        build_scene(positions, radii, colors, view, proj, settings, bonds,
-                    device=device)
-    )
+    with section("raster.scene"):
+        scene = build_scene(positions, radii, colors, view, proj, settings, bonds,
+                            device=device)
+    with section("raster.kernel"):
+        return render_scene(scene)

@@ -61,6 +61,7 @@ import torch
 from viamd_tpu_torch.core import elements as E
 from viamd_tpu_torch.core import system as S
 from viamd_tpu_torch.core.bitfield import Bitfield
+from viamd_tpu_torch.core.tracing import section
 from viamd_tpu_torch.ops import com as com_ops
 from viamd_tpu_torch.ops import covariance as cov_ops
 from viamd_tpu_torch.ops import geometry as geom_ops
@@ -622,7 +623,10 @@ class _Compiler:
         if fn is None:  # after its arguments, whose errors come first
             raise _not_ported(f"'{node.func}'", node)
         try:
-            return fn(self, node, args)
+            # static values are cached by node on the first walk, so a
+            # frame's walk spans only its per-frame builtins
+            with section(_span_name(node.func)):
+                return fn(self, node, args)
         except ScriptError:
             raise
         except (TypeError, ValueError, IndexError, RuntimeError) as e:
@@ -839,6 +843,16 @@ def _require_atoms(name: str, node, *sels):
 
 BUILTINS: dict[str, Callable] = {}
 NULLARY: dict[str, Callable] = {}
+_SPAN_NAMES: dict[str, str] = {}
+
+
+def _span_name(func: str) -> str:
+    """'script.<func>', made once per builtin name, so a call's span
+    allocates nothing while tracing is off."""
+    name = _SPAN_NAMES.get(func)
+    if name is None:
+        name = _SPAN_NAMES[func] = "script." + func
+    return name
 
 
 def builtin(name):
