@@ -188,7 +188,14 @@ result line each (several for 16–22):
    `render demo --postprocess` in a process of its own, the viewer on
    127.0.0.1 (/api/state, /render at full width, /api/orbit), and the
    demo's cartoon with an orbital composited in-scene; launch counts of
-   all five kernels set to 0 before and read after;
+   all six kernels set to 0 before and read after. Its `[hbao]` line:
+   csrc/hbao.cu on the session's 1920×1080 depth — the kernel against
+   `hbao_plain` on the card (largest difference, bit-equal share; it raises
+   unless the two are equal bit for bit outside `cuda_hbao.tie_pixels`), its
+   device time behind a queued sleep (the mips, the occlusion, the blur)
+   against its bound, the plain version's time, the launches of one call,
+   ptxas' registers and spills of its three kernels, and the composed
+   frame with the kernel and with the plain version in turns;
 22. `[multi]`: multi-device evaluation (viamd_tpu_torch.parallel) with 4
    ranks — processes started by parallel.launch.spawn — sharing the card
    over gloo (NCCL refuses two ranks on one device); an exclusive compute
@@ -253,7 +260,8 @@ from viamd_tpu_torch.ops.neighbors import (
 )
 from viamd_tpu_torch.ops.pbc import inv_basis_of
 from viamd_tpu_torch.ops.rdf import pair_dist_histogram_scatter_idx, sqrt_rn
-from viamd_tpu_torch.render import cuda_raster, cuda_volume, postprocess
+from viamd_tpu_torch.render import cuda_hbao, cuda_raster, cuda_volume, postprocess
+from viamd_tpu_torch.render import hbao as hbao_mod
 from viamd_tpu_torch.render import raster as raster_mod
 from viamd_tpu_torch.render.camera import (
     compute_optimal_view,
@@ -2979,7 +2987,7 @@ def density_volume_check(dev, n_waters: int, width: int, height: int) -> str:
 
 SESSION_TAA_FRAMES, SESSION_OUTLINE = 16, "residue(1:2000)"
 SESSION_STAGES = ("raster", "outline", "volume", "postprocess")
-KERNEL_MODULES = (cuda_rdf, cuda_raster, cuda_volume, cuda_triangles, cuda_gto)
+KERNEL_MODULES = (cuda_rdf, cuda_raster, cuda_volume, cuda_triangles, cuda_gto, cuda_hbao)
 
 
 def reset_launches() -> None:
@@ -3034,6 +3042,88 @@ def staged_frame(s, **kw):
         out = s.render(**kw)
     torch.cuda.synchronize()
     return out, times
+
+
+# csrc/hbao.cu's float32 operations a pixel, counted from its source: the
+# normal (positions, two differences, the cross product with 3 FMAs, the
+# norm, 3 divisions), the radius and mip offset, each of the 16 samples
+# (coordinates, level, fetch position, view vector, N·V, rsqrt, falloff,
+# the weighted sum), the normalisation and power, and the blur's 6 taps
+# an axis (difference, square, exp2f, two sums) with its quotient
+HBAO_OPS_NORMAL, HBAO_OPS_SAMPLE, HBAO_OPS_PIXEL, HBAO_OPS_TAP = 52, 45, 20, 8
+HBAO_COMPOSED_FRAMES = 5
+
+
+def hbao_phase(dev, s, width: int, height: int) -> dict:
+    """[hbao]: csrc/hbao.cu on Session `s`'s raw depth at width × height
+    (its camera), against `hbao_plain` on the card; then the composed
+    frame (the session's outline, volume `v`, postprocess) with the kernel
+    and with the plain version in turns. Counts nothing of the session's
+    launches (it runs inside `uncounted`)."""
+    t0 = time.perf_counter()
+    _, dep, _ = s.render(width, height)
+    dep = dep.contiguous()
+    proj = np.asarray(s.camera.proj_matrix(width, height), np.float32)
+    before = cuda_hbao.launches
+    got = hbao_mod.hbao(dep, proj)
+    per_call = cuda_hbao.launches - before
+    want = hbao_mod.hbao_plain(dep, proj)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    equal = float((got == want).float().mean()) * 100
+    # equal bit for bit outside the pixels a mip tie can move
+    tie = cuda_hbao.tie_pixels(dep, proj)
+    apart = got != want
+    n_tie, n_apart, n_bad = int(tie.sum()), int(apart.sum()), int((apart & ~tie).sum())
+    if per_call != 4:
+        raise AssertionError(f"hbao: {per_call} launches a call, expected 4")
+    if n_bad or n_tie > 0.01 * width * height:
+        raise AssertionError(f"hbao: {n_bad} pixels differ from hbao_plain outside the "
+                             f"{n_tie} tie-reachable pixels (max |diff| {err:.3g})")
+    ms = cuda_ms(lambda: hbao_mod.hbao(dep, proj), queued=True)
+    ms_noblur = cuda_ms(lambda: hbao_mod.hbao(dep, proj, blur=False), queued=True)
+    ms_mips = cuda_ms(lambda: cuda_hbao.mips(dep), queued=True)
+    ms_call = cuda_ms(lambda: hbao_mod.hbao(dep, proj))
+    ms_host = host_ms(lambda: hbao_mod.hbao(dep, proj), queued=True)
+    ms_plain = cuda_ms(lambda: hbao_mod.hbao_plain(dep, proj), reps=5, warmup=1)
+    px = width * height
+    ops = px * (HBAO_OPS_NORMAL + 16 * HBAO_OPS_SAMPLE + HBAO_OPS_PIXEL + 2 * (6 * HBAO_OPS_TAP + 2))
+    nbytes = px * 4 * 2  # the depth read once, the AO written once
+    b_ms, b_by = bound(ops, nbytes)
+    ptxas = [ln.strip() for ln in cuda_build.build_info["hbao"]["log"].splitlines()
+             if "registers" in ln or "spill" in ln]
+    # the composed frame, the kernel and the plain version in turns
+    kw = dict(volume="v", postprocess=True)
+    frames = {"kernel": [], "plain": []}
+    for side in ("kernel", "plain", "plain", "kernel"):
+        with (contextlib.nullcontext() if side == "kernel"
+              else mock.patch.object(postprocess, "hbao", hbao_mod.hbao_plain)):
+            s.render(width, height, **kw)  # warm-up
+            for _ in range(HBAO_COMPOSED_FRAMES):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                s.render(width, height, **kw)
+                torch.cuda.synchronize()
+                frames[side].append((time.perf_counter() - t1) * 1e3)
+    med = {k: statistics.median(v) for k, v in frames.items()}
+    phase("hbao", t0, (
+        f"{width}x{height}: kernel vs hbao_plain on the card max |diff| {err:.3g}, bit-equal "
+        f"at {equal:.4f}% of pixels (tolerance: 0 outside the {n_tie} pixels a mip tie within "
+        f"{cuda_hbao.TIE:g} can move, {n_apart} apart, all among them); {per_call} launches "
+        f"a call; device time (queued) "
+        f"{ms:.4f} ms (mips {ms_mips:.4f}, mips + occlusion {ms_noblur:.4f}, so the blur "
+        f"{ms - ms_noblur:.4f}); events around the call {ms_call:.4f} ms, host "
+        f"{ms_host:.4f} ms; bound {b_ms:.4f} ms ({b_by}; {ops:.6g} operations, {nbytes} "
+        f"bytes), the kernel at {b_ms / ms * 100:.1f}%; plain {ms_plain:.3f} ms, "
+        f"plain/kernel {ms_plain / ms:.0f}x; ptxas: {' | '.join(ptxas) or '(build reused)'}; "
+        f"composed frame ms (kernel, plain, plain, kernel; {HBAO_COMPOSED_FRAMES} each): "
+        f"kernel {' '.join(f'{t:.2f}' for t in frames['kernel'])} (median "
+        f"{med['kernel']:.2f}), plain {' '.join(f'{t:.2f}' for t in frames['plain'])} "
+        f"(median {med['plain']:.2f})"
+    ))
+    return dict(launches=per_call, max_abs_err=err, ms=ms, plain_ms=ms_plain, bound_ms=b_ms,
+                bound_by=b_by, call_ms=ms_call, frame_ms=med["kernel"],
+                frame_plain_ms=med["plain"])
 
 
 def session_phase(dev, sys_, traj, res, main_fps: float, n_taa: int = SESSION_TAA_FRAMES,
@@ -3138,6 +3228,8 @@ def _session_phase(dev, sys_, traj, res, main_fps, n_taa, width, height, cli, de
             raise AssertionError(("composed frame", tuple(frame.shape)))
         _, stages = staged_frame(s, width=width, height=height, volume="v", postprocess=True)
         syncs = sync_points(lambda: s.render(width, height, volume="v", postprocess=True))
+        with uncounted():
+            hbao_res = hbao_phase(dev, s, width, height)
         # -- 4. a TAA movie over frames 0..n_taa-1
         s.selection.clear()
         list(s.render_frames(range(2), width, height, taa=True))  # warm-up
@@ -3287,7 +3379,7 @@ def _session_phase(dev, sys_, traj, res, main_fps, n_taa, width, height, cli, de
         f"components (the reference runs not counted) "
         + ", ".join(f"{k} {v}" for k, v in launches.items())
     ))
-    return {"launches": launches}
+    return {"launches": launches, "hbao": hbao_res}
 
 
 # [multi] (phase 22): multi-device evaluation with ranks sharing the card.
@@ -3890,13 +3982,16 @@ def main() -> None:
     for rep in REPS:  # warm-up: allocator, cuRAND-free, nothing to compile
         render_frames(rep)
     torch.cuda.reset_peak_memory_stats()
-    cuda_rdf.launches = cuda_raster.launches = 0
+    cuda_rdf.launches = cuda_raster.launches = cuda_hbao.launches = 0
     path = {rep: [render_frames(rep) for _ in range(3)] for rep in REPS}
     raster_launches = cuda_raster.launches  # read just after the render path
+    hbao_launches = cuda_hbao.launches
     hist_launches_render = cuda_rdf.launches
     render_peak = torch.cuda.max_memory_allocated() / 2**30
     if raster_launches < len(REPS) * 3 * RENDER_FRAMES:
         raise AssertionError(f"raster launched {raster_launches} times in the render path")
+    if hbao_launches != 4 * len(REPS) * 3 * RENDER_FRAMES:
+        raise AssertionError(f"hbao launched {hbao_launches} times in the render path")
     for rep in REPS:
         best = min(path[rep], key=sum)
         phase("render", t0, (
@@ -3906,7 +4001,8 @@ def main() -> None:
             ) + f" (best {best[0]:.3f} + {best[1]:.3f} = {sum(best):.3f})"
         ))
     phase("render", t0, (
-        f"raster launches {raster_launches} (pair_hist {hist_launches_render}); "
+        f"raster launches {raster_launches} (pair_hist {hist_launches_render}, hbao "
+        f"{hbao_launches}); "
         f"peak mem {render_peak:.3f} GiB"
     ))
 
@@ -3959,7 +4055,8 @@ def main() -> None:
     density_volume_phase(dev, sys_, compiled, res, traj)
 
     # -- 21. the app layer: Session, the .via workspace, the CLI, the viewer
-    session = session_phase(dev, sys_, traj, res, max(fps["fixed"]))["launches"]
+    session_res = session_phase(dev, sys_, traj, res, max(fps["fixed"]))
+    session, hb = session_res["launches"], session_res["hbao"]
 
     # -- 22. multi-device evaluation, ranks sharing the card
     multi = multi_phase(dev, sys_, traj, res, tri)
@@ -4097,6 +4194,23 @@ def main() -> None:
             "bound_by": qm["density"]["bound_by"],
             "bound_all_pairs_ms": qm["density"]["bound_all_ms"],
             "bound_kernel_pairs_ms": qm["density"]["bound_kernel_ms"],
+            "library_ms": None,
+        },
+        {
+            "name": "hbao",
+            "route": "cuda",
+            "source": "viamd_tpu_torch/csrc/hbao.cu",
+            "replaces": "viamd_tpu/render/hbao.py:_hbao_impl (XLA, no Pallas kernel)",
+            "launches": hb["launches"],
+            "launches_session": session["hbao"],
+            "max_abs_err": hb["max_abs_err"],
+            "ms": hb["ms"],
+            "plain_ms": hb["plain_ms"],
+            "bound_ms": hb["bound_ms"],
+            "bound_by": hb["bound_by"],
+            "call_ms": hb["call_ms"],
+            "frame_ms": hb["frame_ms"],
+            "frame_plain_ms": hb["frame_plain_ms"],
             "library_ms": None,
         },
     ]}))

@@ -8,9 +8,14 @@ a full-resolution-upsampled depth mip stack, NdotV-bias obscurance with
 quadratic falloff, and the depth-aware separable blur. Reference defaults:
 intensity 6, radius 6, bias 0.1.
 
-The jitter tables are numpy (computed once, identical to the JAX
-package's) and are gathered per pixel phase on the depth buffer's device,
-where everything per pixel runs.
+`hbao` routes by the depth buffer's device. A CUDA tensor goes to the
+hand-written kernel, csrc/hbao.cu through render/cuda_hbao.py: four
+launches a frame (the mips at their own sizes, the occlusion, the blur
+along x and y) and no wait, or it raises. The rest of this module is the
+plain version (`hbao_plain`), which CPU tensors take and the kernel is
+held to: the jitter tables are numpy (computed once, identical to the JAX package's)
+and are gathered per pixel phase on the depth buffer's device, where
+everything per pixel runs.
 """
 
 from __future__ import annotations
@@ -184,11 +189,10 @@ def view_normals(view_depth: torch.Tensor, proj, ortho: bool = False) -> torch.T
     return n / torch.linalg.vector_norm(n, dim=-1, keepdim=True).clamp_min(1e-12)
 
 
-def _mip_stack(d: torch.Tensor) -> torch.Tensor:
-    """(M, H, W) linear-depth mip pyramid: each level a 2^m-box average,
-    upsampled back to full resolution (nearest)."""
-    H, W = d.shape
-    levels = [d]
+def _mip_levels(d: torch.Tensor) -> list:
+    """Mip levels 1 … M−1 of the linear depth, each at its own size: the
+    2×2 mean of the level below, an odd last row or column replicated."""
+    levels = []
     cur = d
     for _ in range(1, _N_MIPS):
         h, w = cur.shape
@@ -199,10 +203,20 @@ def _mip_stack(d: torch.Tensor) -> torch.Tensor:
             p = torch.cat([p, p[:, -1:]], dim=1)
         ph, pw = p.shape
         cur = p.reshape(ph // 2, 2, pw // 2, 2).mean(dim=(1, 3))
-        k = 2 ** len(levels)
-        up = cur.repeat_interleave(k, dim=0).repeat_interleave(k, dim=1)[:H, :W]
-        levels.append(up)
-    return torch.stack(levels)
+        levels.append(cur)
+    return levels
+
+
+def _mip_stack(d: torch.Tensor) -> torch.Tensor:
+    """(M, H, W) linear-depth mip pyramid: each level a 2^m-box average,
+    upsampled back to full resolution (nearest), so level m at pixel (y, x)
+    is texel (y >> m, x >> m) of `_mip_levels`' level m."""
+    H, W = d.shape
+    ups = [d]
+    for m, cur in enumerate(_mip_levels(d), start=1):
+        k = 2 ** m
+        ups.append(cur.repeat_interleave(k, dim=0).repeat_interleave(k, dim=1)[:H, :W])
+    return torch.stack(ups)
 
 
 def _hbao_impl(view_depth, normals, *, info, proj_scl, z_max, ortho,
@@ -253,7 +267,31 @@ def hbao(view_depth, proj, *, intensity: float = 6.0, radius: float = 6.0,
          bias: float = 0.1, ortho: bool = False, normals=None,
          blur: bool = True) -> torch.Tensor:
     """(H, W) linear view depth tensor (+ proj from render/camera.py) →
-    (H, W) AO factor in [0, 1] on the depth's device."""
+    (H, W) AO factor in [0, 1] on the depth's device: csrc/hbao.cu for a
+    CUDA tensor (float32, contiguous, or it raises), `hbao_plain` for a CPU
+    one."""
+    view_depth = torch.as_tensor(view_depth)
+    if view_depth.device.type != "cuda":
+        return hbao_plain(view_depth, proj, intensity=intensity, radius=radius, bias=bias,
+                          ortho=ortho, normals=normals, blur=blur)
+    from viamd_tpu_torch.render import cuda_hbao
+
+    info, proj_scl, z_max = proj_info(proj, ortho)
+    return cuda_hbao.hbao(
+        view_depth, normals, info=info, proj_scl=proj_scl, z_max=z_max * 0.99,
+        ortho=ortho, intensity=float(intensity), radius=float(radius), bias=float(bias),
+        sharpness=_sharpness(radius) if blur else None,
+    )
+
+
+def _sharpness(radius: float) -> float:
+    return float(4.0 / np.sqrt(max(radius, 1e-6)))  # compute_sharpness
+
+
+def hbao_plain(view_depth, proj, *, intensity: float = 6.0, radius: float = 6.0,
+               bias: float = 0.1, ortho: bool = False, normals=None,
+               blur: bool = True) -> torch.Tensor:
+    """The plain version of `hbao`, on the depth's device, whatever it is."""
     view_depth = torch.as_tensor(view_depth)
     info, proj_scl, z_max = proj_info(proj, ortho)
     if normals is None:
@@ -264,9 +302,7 @@ def hbao(view_depth, proj, *, intensity: float = 6.0, radius: float = 6.0,
         radius=float(radius), bias=float(bias),
     )
     if blur:
-        sharpness = 4.0 / np.sqrt(max(radius, 1e-6))  # compute_sharpness
-        ao = hbao_blur(ao, view_depth, sharpness=float(sharpness),
-                       z_max=z_max * 0.99)
+        ao = hbao_blur(ao, view_depth, sharpness=_sharpness(radius), z_max=z_max * 0.99)
     return ao
 
 
