@@ -291,6 +291,58 @@ def test_demo_default_script(monkeypatch):
         s.shutdown()
 
 
+def test_attach_is_load_demos_sequence():
+    """`Session.attach` leaves a session as the attach sequence `load_demo`
+    ran before the call existed: the system and its name, the camera fitted
+    to it, an empty selection and highlight, the default representation,
+    SYSTEM_INIT, then the trajectory; and `load_demo` now gives that state."""
+    from viamd_tpu_torch.app.events import EventType
+    from viamd_tpu_torch.app.session import Representation
+    from viamd_tpu_torch.core.bitfield import Bitfield
+    from viamd_tpu_torch.datagen import polyala_helix
+    from viamd_tpu_torch.render import camera as cam_mod
+
+    def logged():
+        s = Session(device="cpu")
+        log = []
+        for ev in (EventType.SYSTEM_INIT, EventType.TRAJECTORY_INIT):
+            s.events.subscribe(ev, lambda e, ev=ev: log.append(ev))
+        return s, log
+
+    sys_, traj = polyala_helix(n_res=6, n_frames=3)
+    old, old_log = logged()
+    old.system = sys_
+    old.files["system"] = "<demo:polyala>"
+    old.camera = cam_mod.compute_optimal_view(*sys_.aabb())
+    old.selection = Bitfield(sys_.natoms)
+    old.highlight = Bitfield(sys_.natoms)
+    old.representations.append(Representation())
+    old._update_representations()
+    old.events.broadcast(EventType.SYSTEM_INIT, old)
+    old.set_trajectory(traj)
+    new, new_log = logged()
+    assert new.attach(sys_, traj, name="<demo:polyala>") is new
+    demo = Session(device="cpu").load_demo(n_res=6, n_frames=3)
+    assert new_log == old_log == [EventType.SYSTEM_INIT, EventType.TRAJECTORY_INIT]
+    for s in (new, demo):
+        assert s.files == old.files
+        for k in ("eye", "center", "up", "fovy", "znear", "zfar"):
+            np.testing.assert_array_equal(getattr(s.camera, k), getattr(old.camera, k))
+        assert s.selection.popcount() == s.highlight.popcount() == 0
+        assert len(s.selection.to_bools()) == sys_.natoms
+        assert [(r.type, r.filter, r.color_mapping) for r in s.representations] == [
+            (r.type, r.filter, r.color_mapping) for r in old.representations]
+        np.testing.assert_array_equal(s.representations[0].mask.to_bools(),
+                                      old.representations[0].mask.to_bools())
+        assert s.num_frames == old.num_frames == 3
+        s.set_frame(1.5)
+        old.set_frame(1.5)
+        np.testing.assert_array_equal(s.current_coords(), old.current_coords())
+    assert new.system is sys_ and not new.script_text
+    for s in (old, new, demo):
+        s.shutdown()
+
+
 # -- frames ----------------------------------------------------------------------------
 
 

@@ -208,17 +208,7 @@ class Session:
         from viamd_tpu_torch.datagen import polyala_helix
 
         sys, traj = polyala_helix(n_res=n_res, n_frames=n_frames)
-        self.system = sys
-        self.files["system"] = "<demo:polyala>"
-        lo, hi = sys.aabb()
-        self.camera = cam_mod.compute_optimal_view(lo, hi)
-        self.selection = Bitfield(sys.natoms)
-        self.highlight = Bitfield(sys.natoms)
-        if not self.representations:
-            self.representations.append(Representation())
-        self._update_representations()
-        self.events.broadcast(EventType.SYSTEM_INIT, self)
-        self.set_trajectory(traj)
+        self.attach(sys, traj, name="<demo:polyala>")
         self.set_script(
             's1 = resname("ALA")[2:8];\n'
             "d1 = distance(10,30);\n"
@@ -227,6 +217,24 @@ class Session:
             "v = sdf(s1, element('H'), 10.0);\n"
             "{lin,plan,iso} = shape_weights(all);"
         )
+        return self
+
+    def attach(self, system: System, trajectory: Trajectory, name: str) -> "Session":
+        """Attach a system built in memory and its trajectory, as a file
+        load attaches what it read: the camera fitted to the system, an
+        empty selection and highlight, the default representation if there
+        is none, SYSTEM_INIT, then the trajectory. `name` stands in the
+        place of the file name."""
+        self.system = system
+        self.files["system"] = name
+        self.camera = cam_mod.compute_optimal_view(*system.aabb())
+        self.selection = Bitfield(system.natoms)
+        self.highlight = Bitfield(system.natoms)
+        if not self.representations:
+            self.representations.append(Representation())
+        self._update_representations()
+        self.events.broadcast(EventType.SYSTEM_INIT, self)
+        self.set_trajectory(trajectory)
         return self
 
     def set_trajectory(self, traj: Trajectory):
@@ -713,10 +721,12 @@ class Session:
             from viamd_tpu_torch.render.ribbon_mesh import ribbon_mesh
             from viamd_tpu_torch.render.triangles import render_triangles, view_transform
 
-            tris, src = ribbon_mesh(sys, coords_np, ss_weights=ss_w,
-                                    cartoon=rep.type == "cartoon",
-                                    width_scale=rep.radius_scale)
-            tv = view_transform(tris, cam.view_matrix(), device=dev)
+            with section("cartoon.mesh"):
+                tris, src = ribbon_mesh(sys, coords_np, ss_weights=ss_w,
+                                        cartoon=rep.type == "cartoon",
+                                        width_scale=rep.radius_scale)
+            with section("cartoon.upload"):
+                tv = view_transform(tris, cam.view_matrix(), device=dev)
             return render_triangles(tv, cols[src], src, proj, width, height, device=dev)
         if rep.type == "tube":
             from viamd_tpu_torch.render.backbone_rep import backbone_tube
@@ -838,11 +848,12 @@ class Session:
                 ):
                     from viamd_tpu_torch.render.backbone_rep import current_ss_weights
 
-                    ss_w = (
-                        current_ss_weights(sys, coords, device=dev).cpu().numpy()
-                        if sys.backbone is not None
-                        else None
-                    )
+                    with section("cartoon.ss"):
+                        ss_w = (
+                            current_ss_weights(sys, coords, device=dev).cpu().numpy()
+                            if sys.backbone is not None
+                            else None
+                        )
                 cols = self._rep_colors(rep, ss_w, show_selection)
             with section("render.draw"):
                 out = self._draw_rep(rep, cols, coords, coords_np, ss_w, cam, width, height,

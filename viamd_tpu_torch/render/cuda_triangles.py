@@ -23,12 +23,14 @@ import torch
 
 from viamd_tpu_torch.cuda_build import build_info, check_tensor as _check, load_library
 
-__all__ = ["LIBRARY", "TILE", "launches", "load_kernel", "raster"]
+__all__ = ["LIBRARY", "TILE", "launches", "load_kernel", "raster", "triangles"]
 
 TILE = 16  # pixels per screen tile side; one kernel block per tile
 
-# kernel launches since import (reset freely by callers that count a run)
+# kernel launches since import, and the triangles handed to them, summed
+# (reset freely by callers that count a run)
 launches = 0
+triangles = 0
 
 # (library name, sources in csrc/) for cuda_build
 LIBRARY = ("triangles", ("triangles.cu",))
@@ -59,7 +61,7 @@ def raster(tri, color, pick, start, lst, width: int, height: int,
     """One launch of csrc/triangles.cu on CUDA tensors → (rgba, depth,
     pick). Raises on what the kernel does not take, or if the launch
     fails."""
-    global launches
+    global launches, triangles
     dev = tri.device
     if dev.type != "cuda":
         raise ValueError(f"the triangle kernel runs on CUDA tensors, not {dev}")
@@ -84,4 +86,5 @@ def raster(tri, color, pick, start, lst, width: int, height: int,
     if err != 0:
         raise RuntimeError(f"triangle kernel launch failed: CUDA error {err}")
     launches += 1
+    triangles += T
     return rgba, depth, out_pick

@@ -29,6 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from viamd_tpu_torch.core.tracing import section
 from viamd_tpu_torch.ops.rdf import div_rn, sqrt_rn
 from viamd_tpu_torch.render import cuda_triangles
 from viamd_tpu_torch.render.cuda_triangles import TILE
@@ -320,6 +321,8 @@ def render_triangles(
     pk = torch.as_tensor(pick_ids, device=dev).to(torch.int32).contiguous()
     p = np.asarray(proj, np.float32)
     p00, p11 = float(p[0, 0]), float(p[1, 1])
-    start, lst = bin_triangles(v, p00, p11, width, height)
-    return raster_triangles(v, col, pk, start, lst, width, height, p00, p11,
-                            light, shade)
+    with section("triangles.bin"):
+        start, lst = bin_triangles(v, p00, p11, width, height)
+    with section("triangles.kernel"):
+        return raster_triangles(v, col, pk, start, lst, width, height, p00, p11,
+                                light, shade)
