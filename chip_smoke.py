@@ -127,10 +127,17 @@ result line each (several for 16–22):
    polyala_helix(64) chains on a 4×4 lattice 12 Å apart (7,168 atoms, 1,024
    backbone residues), 16 frames jittered from a numpy seed, 1920×1080
    under compute_optimal_view: every stage's ms a frame (current_ss_weights
-   on the device, the SS colouring, ribbon_mesh on the host, the view
-   transform and binning, csrc/triangles.cu, the tube through raster.cu,
-   the depth composite) over three runs, launch counts set to 0 before and
-   read after; the triangle kernel against its plain version on frame 0
+   on the device, the SS colouring, the view-space mesh by csrc/ribbon.cu
+   through ribbon_view as Session.render builds it, the CA colours
+   gathered per triangle and the binning, csrc/triangles.cu, the tube
+   through raster.cu, the depth composite) over three runs, launch counts
+   set to 0 before and read after; csrc/ribbon.cu against its plain
+   version, view_transform(ribbon_mesh(...)), bit for bit (every float of
+   every triangle, and the tables' source atoms) on the bundle's frame 0
+   in cartoon and ribbons mode and on the stmv.cartoon capsid's base frame
+   (60 chains × 159 residues, 606,960 triangles), one launch a call, its
+   device time behind a queued sleep and with events around the call, the
+   plain version's time and the byte bound; the triangle kernel against its plain version on frame 0
    over the whole frame (0 mismatching rgba, depth and pick pixels), the
    ray tests it does (every pixel of a tile against every candidate), its
    device time, registers and spills, plain time and bound; 4,096 sampled
@@ -188,7 +195,7 @@ result line each (several for 16–22):
    `render demo --postprocess` in a process of its own, the viewer on
    127.0.0.1 (/api/state, /render at full width, /api/orbit), and the
    demo's cartoon with an orbital composited in-scene; launch counts of
-   all six kernels set to 0 before and read after. Its `[hbao]` line:
+   all seven kernels set to 0 before and read after. Its `[hbao]` line:
    csrc/hbao.cu on the session's 1920×1080 depth — the kernel against
    `hbao_plain` on the card (largest difference, bit-equal share; it raises
    unless the two are equal bit for bit outside `cuda_hbao.tie_pixels`), its
@@ -292,12 +299,12 @@ from viamd_tpu_torch.components.ramachandran import ACC_RES
 from viamd_tpu_torch.core.system import build_system
 from viamd_tpu_torch.core.system import postprocess as core_postprocess
 from viamd_tpu_torch.io.trajectory import InMemoryTrajectory
-from viamd_tpu_torch.render import cuda_triangles
+from viamd_tpu_torch.render import cuda_ribbon, cuda_triangles
 from viamd_tpu_torch.render import triangles as tri_mod
 from viamd_tpu_torch.render.backbone_rep import backbone_tube, current_ss_weights
 from viamd_tpu_torch.render.color import color_atoms_secondary_structure
 from viamd_tpu_torch.render.overlay import OverlayQueue
-from viamd_tpu_torch.render.ribbon_mesh import ribbon_mesh
+from viamd_tpu_torch.render.ribbon_mesh import ribbon_mesh, ribbon_tables, ribbon_view
 from viamd_tpu_torch.render.triangles import (
     bin_triangles,
     pixel_rays,
@@ -434,6 +441,9 @@ OPS_VSETUP, OPS_VSCENE = 180, 21
 # 1,000 for the analyses; 4,096 sampled pixels against the brute force.
 BUNDLE_SIDE, BUNDLE_RES, BUNDLE_SPACING, BUNDLE_SIGMA = 4, 64, 12.0, 0.08
 CARTOON_FRAMES, RAMA_FRAMES, RAMA_CPU_FRAMES, CARTOON_SAMPLES = 16, 1_000, 8, 4_096
+# the capsid of the stmv.cartoon cell, made at a seed above 2**31 as the
+# benchmark's seeds are
+CAPSID_SEED = 2**31 + 977
 JAX_TRI_CAP = 64  # viamd_tpu/render/triangles.py's max_per_tile
 # csrc/triangles.cu's float32 operations: per (pixel, candidate) test,
 # d × e2 (9), det (5), |det| test (2), 1/det (1), u (6), v (6), t (1), the
@@ -1971,16 +1981,19 @@ def helix_bundle(n_side: int = BUNDLE_SIDE, n_res: int = BUNDLE_RES,
 CARTOON_STAGES = ("ss", "colour", "mesh", "bin", "kernel", "tube_mesh", "tube", "composite")
 
 
-def cartoon_frame(sys_, x, view, proj, width: int, height: int, dev, times=None) -> dict:
-    """One frame of the protein views, stage by stage as a Session would run
-    a cartoon rep and a tube rep (viamd_tpu/app/session.py:655-760):
-    current_ss_weights on the device; the secondary-structure colouring
-    (host); ribbon_mesh, cartoon (host); the mesh to the device, its view
-    transform and binning; the triangle kernel; the tube (backbone_tube on
-    the host, render_molecules through raster.cu, picks mapped to CA
-    atoms; the host's spline and the device's render as two stages); the
-    depth composite. With `times`, adds each stage's seconds
-    (host clock, a synchronize at each stage's end)."""
+def cartoon_frame(sys_, x, view, proj, width: int, height: int, dev, tables,
+                  times=None) -> dict:
+    """One frame of the protein views, stage by stage as a Session runs a
+    cartoon rep and a tube rep (viamd_tpu_torch/app/session.py, render and
+    _draw_rep): the frame to the device and current_ss_weights there; the
+    secondary-structure colouring (host); the cartoon's view-space mesh
+    through ribbon_view on the system's `tables` (csrc/ribbon.cu); the CA
+    atoms' colours to the device, gathered per triangle, and the binning;
+    the triangle kernel; the tube (backbone_tube on the host,
+    render_molecules through raster.cu, picks mapped to CA atoms; the
+    host's spline and the device's render as two stages); the depth
+    composite. With `times`, adds each stage's seconds (host clock, a
+    synchronize at each stage's end)."""
     p = np.asarray(proj, np.float32)
     p00, p11 = float(p[0, 0]), float(p[1, 1])
     t = time.perf_counter()
@@ -1993,16 +2006,16 @@ def cartoon_frame(sys_, x, view, proj, width: int, height: int, dev, times=None)
             times[name] += now - t
         t = now
 
-    ss = current_ss_weights(sys_, x, device=dev)
+    x_t = torch.as_tensor(x, device=dev)
+    ss = current_ss_weights(sys_, x_t, device=dev)
     ss_np = ss.cpu().numpy()
     lap("ss")
     cols = color_atoms_secondary_structure(sys_, ss_np)
     lap("colour")
-    tris, src = ribbon_mesh(sys_, x, ss_weights=ss_np, cartoon=True)
+    tv = ribbon_view(sys_, x_t, ss, view, tables, cartoon=True)
     lap("mesh")
-    tv = view_transform(tris, view, device=dev)
-    col_t = torch.as_tensor(cols[src], device=dev)
-    src_t = torch.as_tensor(src, device=dev)
+    col_t = torch.as_tensor(cols[sys_.backbone.atom_ca], device=dev)[tables.res]
+    src_t = tables.src
     start, lst = bin_triangles(tv, p00, p11, width, height)
     lap("bin")
     img, dep, pick = raster_triangles(tv, col_t, src_t, start, lst, width, height, p00, p11)
@@ -2021,7 +2034,7 @@ def cartoon_frame(sys_, x, view, proj, width: int, height: int, dev, times=None)
     pick = torch.where(closer, t_pick, pick)
     dep = torch.minimum(dep, t_dep)
     lap("composite")
-    return dict(img=img, depth=dep, pick=pick, ss=ss_np, n_tris=int(tris.shape[0]),
+    return dict(img=img, depth=dep, pick=pick, ss=ss, n_tris=tables.count,
                 args=(tv, col_t, src_t, start, lst, width, height, p00, p11))
 
 
@@ -2075,6 +2088,76 @@ def tri_bound(args, hits: int) -> dict:
     return dict(tests=tests, entries=entries, ops=ops, nbytes=nbytes, bound_ms=b_ms, bound_by=b_by)
 
 
+def ribbon_check(sys_, x, view, dev, cartoon: bool = True, plain_reps: int = 3) -> dict:
+    """csrc/ribbon.cu against its plain version on one frame, as
+    Session.render calls it: the system's tables and the frame's
+    current_ss_weights on the device, ribbon_view on the card (one launch,
+    counted from 0) against view_transform(ribbon_mesh(...)) on the same
+    inputs. Raises unless every float of every triangle is equal bit for
+    bit and the tables' source atoms are ribbon_mesh's. Then the kernel's
+    device time behind a queued sleep and with events around the call,
+    the plain version's time (host mesh, upload and view product, events
+    around the call), and the byte bound: the triangles written (36 bytes
+    each), the CA, C and O coordinates, atom indices and SS weights read
+    (48 + 12 + 12 bytes a residue), the chain table (12 a chain), and the
+    float64 scratch row written and read back (2 × 40 bytes a residue),
+    over 3.35 TB/s."""
+    tables = ribbon_tables(sys_, device=dev)
+    x_t = torch.as_tensor(np.asarray(x, np.float32), device=dev)
+    ss = current_ss_weights(sys_, x_t, device=dev)
+    ss_np = ss.cpu().numpy()
+
+    def kernel():
+        return ribbon_view(sys_, x_t, ss, view, tables, cartoon=cartoon)
+
+    def plain():
+        tris, _ = ribbon_mesh(sys_, x, ss_weights=ss_np, cartoon=cartoon)
+        return view_transform(tris, view, device=dev)
+
+    cuda_ribbon.launches = 0
+    got = kernel()
+    torch.cuda.synchronize()
+    launches = cuda_ribbon.launches
+    tris, src = ribbon_mesh(sys_, x, ss_weights=ss_np, cartoon=cartoon)
+    want = view_transform(tris, view, device=dev)
+    torch.cuda.synchronize()
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"ribbon kernel: {tuple(got.shape)} {got.dtype} against the "
+                             f"plain version's {tuple(want.shape)} {want.dtype}")
+    differ = int((got.view(torch.int32) != want.view(torch.int32)).any(dim=(1, 2)).sum())
+    err = float((got.double() - want.double()).abs().max())
+    src_ok = np.array_equal(tables.src.cpu().numpy(), src)
+    if launches != 1 or differ or not src_ok:
+        raise AssertionError(f"ribbon kernel: {launches} launches, {differ} of {len(want)} "
+                             f"triangles differ from the plain version (max |d| {err}), "
+                             f"sources equal: {src_ok}")
+    ms = cuda_ms(kernel, queued=True)
+    call_ms = cuda_ms(kernel)
+    plain_ms = cuda_ms(plain, reps=plain_reps, warmup=1)
+    nbb, n_chains = sys_.backbone.count, tables.chains.shape[0]
+    nbytes = tables.count * 36 + nbb * (48 + 12 + 12 + 2 * 40) + n_chains * 12
+    bound_ms, bound_by = bound(0, nbytes)
+    return dict(residues=nbb, chains=n_chains, triangles=tables.count, launches=launches,
+                differ=differ, max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                nbytes=nbytes, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def capsid_frame() -> tuple:
+    """The stmv.cartoon deployment's system and base frame at CAPSID_SEED,
+    made by the benchmark's frozen generator (portbench/capsid.py) and
+    turned into a System as the cell's set-up does."""
+    from portbench import capsid, run as portbench_run
+
+    cfg = portbench_run.cell_files("stmv.cartoon")["config"]
+    cap = capsid.capsid(cfg, CAPSID_SEED)
+    sys_ = build_system(coords=cap.coords, atom_names=cap.atom_names, res_names=cap.res_names,
+                        res_ids=cap.res_ids, chain_ids=cap.chain_ids, elements_z=cap.z,
+                        cell=UnitCell.orthorhombic(cap.box, cap.box, cap.box))
+    sys_.bonds = cap.bonds.copy()
+    core_postprocess(sys_, infer_bonds=False)
+    return sys_, np.asarray(cap.coords, np.float32)
+
+
 def cartoon_phase(dev, smi: str, n_side: int = BUNDLE_SIDE, n_res: int = BUNDLE_RES,
                   n_frames: int = CARTOON_FRAMES, width: int = WIDTH, height: int = HEIGHT,
                   samples: int = CARTOON_SAMPLES) -> dict:
@@ -2097,18 +2180,21 @@ def cartoon_phase(dev, smi: str, n_side: int = BUNDLE_SIDE, n_res: int = BUNDLE_
     frames = (base[None] + rng.normal(scale=BUNDLE_SIGMA, size=(n_frames, *base.shape))).astype(np.float32)
     cam = compute_optimal_view(base.min(0), base.max(0))
     view, proj = cam.view_matrix(), cam.proj_matrix(width, height)
-    cartoon_frame(sys_, frames[0], view, proj, width, height, dev)  # warm-up
+    tables = ribbon_tables(sys_, device=dev)
+    cartoon_frame(sys_, frames[0], view, proj, width, height, dev, tables)  # warm-up
     runs = []
-    cuda_triangles.launches = cuda_raster.launches = 0
+    cuda_triangles.launches = cuda_raster.launches = cuda_ribbon.launches = 0
     for _ in range(3):
         times = dict.fromkeys(CARTOON_STAGES, 0.0)
         for f in range(n_frames):
-            out = cartoon_frame(sys_, frames[f], view, proj, width, height, dev, times)
+            out = cartoon_frame(sys_, frames[f], view, proj, width, height, dev, tables, times)
         runs.append({k: v * 1e3 / n_frames for k, v in times.items()})
-    tri_launches, tube_launches = cuda_triangles.launches, cuda_raster.launches  # just after
-    if tri_launches != 3 * n_frames or tube_launches != 3 * n_frames:
-        raise AssertionError(f"cartoon path: {tri_launches} triangle and {tube_launches} "
-                             f"raster launches for {3 * n_frames} frames")
+    # just after
+    tri_launches, tube_launches = cuda_triangles.launches, cuda_raster.launches
+    mesh_launches = cuda_ribbon.launches
+    if not tri_launches == tube_launches == mesh_launches == 3 * n_frames:
+        raise AssertionError(f"cartoon path: {mesh_launches} ribbon, {tri_launches} triangle "
+                             f"and {tube_launches} raster launches for {3 * n_frames} frames")
     img, dep, pick = out["img"], out["depth"], out["pick"]
     if not (img.shape == (height, width, 4) and bool(torch.isfinite(img).all())
             and int((pick >= 0).sum()) > 0.02 * width * height):
@@ -2121,12 +2207,13 @@ def cartoon_phase(dev, smi: str, n_side: int = BUNDLE_SIDE, n_res: int = BUNDLE_
         f"of the runs): " + ", ".join(f"{k} {v:.3f}" for k, v in per_frame.items())
         + f"; sum {sum(per_frame.values()):.3f} (runs "
         + " / ".join(f"{sum(r.values()):.3f}" for r in runs)
-        + f"); launches: triangles {tri_launches}, raster {tube_launches}; {smi}"
+        + f"); launches: ribbon {mesh_launches}, triangles {tri_launches}, raster "
+        f"{tube_launches}; {smi}"
     ))
 
     # frame 0: the kernel against its plain version over the whole frame
     t0 = time.perf_counter()
-    f0 = cartoon_frame(sys_, frames[0], view, proj, width, height, dev)
+    f0 = cartoon_frame(sys_, frames[0], view, proj, width, height, dev, tables)
     args = f0["args"]
     got = raster_triangles(*args)
     want = raster_triangles_plain(*args, tri_mod.LIGHT, True)
@@ -2169,11 +2256,12 @@ def cartoon_phase(dev, smi: str, n_side: int = BUNDLE_SIDE, n_res: int = BUNDLE_
     cap_wrong = int((capped != brute).sum())
     over_cap = int((cnt > JAX_TRI_CAP).sum())
     # the ribbons mode once
-    tris_r, src_r = ribbon_mesh(sys_, frames[0], ss_weights=f0["ss"], cartoon=False)
-    tv_r = view_transform(tris_r, view, device=dev)
-    cols_r = torch.as_tensor(color_atoms_secondary_structure(sys_, f0["ss"])[src_r], device=dev)
+    tv_r = ribbon_view(sys_, torch.as_tensor(frames[0], device=dev), f0["ss"], view, tables,
+                       cartoon=False)
+    cols_r = color_atoms_secondary_structure(sys_, f0["ss"].cpu().numpy())
+    cols_r = torch.as_tensor(cols_r[sys_.backbone.atom_ca], device=dev)[tables.res]
     start_r, lst_r = bin_triangles(tv_r, args[7], args[8], width, height)
-    args_r = (tv_r, cols_r, torch.as_tensor(src_r, device=dev), start_r, lst_r, *args[5:])
+    args_r = (tv_r, cols_r, tables.src, start_r, lst_r, *args[5:])
     got_r = raster_triangles(*args_r)
     want_r = raster_triangles_plain(*args_r, tri_mod.LIGHT, True)
     torch.cuda.synchronize()
@@ -2192,8 +2280,28 @@ def cartoon_phase(dev, smi: str, n_side: int = BUNDLE_SIDE, n_res: int = BUNDLE_
         f"bound; ptxas: {' | '.join(ptxas)}; {samples} sampled pixels against a brute "
         f"force over all {args[0].shape[0]} triangles: {wrong} wrong; tiles over JAX's "
         f"{JAX_TRI_CAP}-slot cap {over_cap}, sampled pixels a {JAX_TRI_CAP}-cap gets "
-        f"wrong {cap_wrong}; ribbons mode {tris_r.shape[0]} triangles, kernel = plain"
+        f"wrong {cap_wrong}; ribbons mode {tv_r.shape[0]} triangles, kernel = plain"
     ))
+
+    # the mesh kernel against its plain version: the bundle in both modes,
+    # the capsid in cartoon mode
+    t0 = time.perf_counter()
+    ribbon = {"bundle, cartoon": ribbon_check(sys_, frames[0], view, dev),
+              "bundle, ribbons": ribbon_check(sys_, frames[0], view, dev, cartoon=False)}
+    cap_sys, cap_x = capsid_frame()
+    cap_view = compute_optimal_view(cap_x.min(0), cap_x.max(0)).view_matrix()
+    ribbon["capsid, cartoon"] = ribbon_check(cap_sys, cap_x, cap_view, dev, plain_reps=2)
+    ptxas_r = [ln.strip() for ln in cuda_build.build_info["ribbon"]["log"].splitlines()
+               if "registers" in ln or "spill" in ln]
+    phase("cartoon-ribbon", t0, "; ".join(
+        f"{name}: {r['chains']} chains, {r['residues']} residues, {r['triangles']} triangles, "
+        f"{r['launches']} launch, {r['differ']} triangles differ from view_transform("
+        f"ribbon_mesh(...)) (max |d| {r['max_abs_err']}), sources equal; kernel "
+        f"{r['ms']:.4f} ms (device, queued; events around the call {r['call_ms']:.4f} ms), "
+        f"plain {r['plain_ms']:.3f} ms, plain/kernel {r['plain_ms'] / r['ms']:.0f}x; bound "
+        f"{r['bound_ms']:.4f} ms ({r['bound_by']}, {r['nbytes']} bytes), kernel at "
+        f"{r['bound_ms'] / r['ms'] * 100:.1f}% of the bound"
+        for name, r in ribbon.items()) + f"; ptxas: {' | '.join(ptxas_r)}")
 
     # an overlay frame over the cartoon
     t0 = time.perf_counter()
@@ -2254,7 +2362,7 @@ def cartoon_phase(dev, smi: str, n_side: int = BUNDLE_SIDE, n_res: int = BUNDLE_
     ))
     return dict(launches=tri_launches, max_abs_err=0.0, ms=ms_k, plain_ms=ms_plain,
                 bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"], call_ms=ms_call,
-                tests=bnd["tests"])
+                tests=bnd["tests"], ribbon=ribbon, ribbon_launches=mesh_launches)
 
 
 def rama_phase(dev, n_side: int = BUNDLE_SIDE, n_res: int = BUNDLE_RES,
@@ -2987,7 +3095,8 @@ def density_volume_check(dev, n_waters: int, width: int, height: int) -> str:
 
 SESSION_TAA_FRAMES, SESSION_OUTLINE = 16, "residue(1:2000)"
 SESSION_STAGES = ("raster", "outline", "volume", "postprocess")
-KERNEL_MODULES = (cuda_rdf, cuda_raster, cuda_volume, cuda_triangles, cuda_gto, cuda_hbao)
+KERNEL_MODULES = (cuda_rdf, cuda_raster, cuda_volume, cuda_triangles, cuda_gto, cuda_hbao,
+                  cuda_ribbon)
 
 
 def reset_launches() -> None:
@@ -4163,6 +4272,22 @@ def main() -> None:
             "bound_by": cartoon["bound_by"],
             "call_ms": cartoon["call_ms"],
             "tests": cartoon["tests"],
+            "library_ms": None,
+        },
+        {
+            "name": "ribbon",
+            "route": "cuda",
+            "source": "viamd_tpu_torch/csrc/ribbon.cu",
+            "replaces": "viamd_tpu_torch/render/ribbon_mesh.py:ribbon_mesh (numpy, host)",
+            "launches": cartoon["ribbon_launches"],
+            "launches_session": session["ribbon"],
+            "max_abs_err": max(r["max_abs_err"] for r in cartoon["ribbon"].values()),
+            "ms": cartoon["ribbon"]["capsid, cartoon"]["ms"],
+            "plain_ms": cartoon["ribbon"]["capsid, cartoon"]["plain_ms"],
+            "bound_ms": cartoon["ribbon"]["capsid, cartoon"]["bound_ms"],
+            "bound_by": cartoon["ribbon"]["capsid, cartoon"]["bound_by"],
+            "call_ms": cartoon["ribbon"]["capsid, cartoon"]["call_ms"],
+            "triangles": cartoon["ribbon"]["capsid, cartoon"]["triangles"],
             "library_ms": None,
         },
         {

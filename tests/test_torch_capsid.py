@@ -222,19 +222,23 @@ def tracer_state():
 @pytest.mark.requires_cuda
 def test_full_size_on_the_card():
     """On the card, at the cell's sizes: the frames of the timed path
-    against the reference within the cell's limits, the triangles handed
-    to the kernel counted, and the control over a limit."""
+    against the reference within the cell's limits, the mesh built by one
+    ribbon.cu launch a frame, the triangles handed to the raster counted,
+    and the control over a limit."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the triangle kernel has no CPU mode")
-    from viamd_tpu_torch.render import cuda_triangles
+    from viamd_tpu_torch.render import cuda_ribbon, cuda_triangles
 
     files = R.cell_files("stmv.cartoon")
     cfg, tr = files["config"], files["traffic"]
     cell = kind.setup(cfg, tr, SEED, "cuda")
     before = cuda_triangles.triangles
+    built = (cuda_ribbon.launches, cuda_ribbon.triangles)
     w = kind.window(cell, 0.0, SEED, steps=2)
-    assert cuda_triangles.triangles - before == 2 * ref.triangle_count(
-        cfg["n_chains"], cfg["residues_per_chain"])
+    count = ref.triangle_count(cfg["n_chains"], cfg["residues_per_chain"])
+    assert cuda_triangles.triangles - before == 2 * count
+    # one ribbon.cu launch a frame builds the mesh triangles.cu takes
+    assert (cuda_ribbon.launches - built[0], cuda_ribbon.triangles - built[1]) == (2, 2 * count)
     kind.release(cell)
     values, _, failed = kind.check(cell, SEED, "cuda", files["limits"])
     assert w["frames"] == 2 and failed == 0, values

@@ -35,7 +35,7 @@ for mod in ("ops.cuda_rdf", "render.camera", "render.color", "render.cuda_raster
             "io.edr", "io.xvg", "io.csv", "render.volume", "render.cuda_volume",
             "render.colormap", "render.bokeh", "render.taa", "ops.histogram",
             "app.events", "app.tasks", "ops.backbone", "render.backbone_rep",
-            "render.ribbon_mesh", "render.triangles", "render.cuda_triangles",
+            "render.ribbon_mesh", "render.cuda_ribbon", "render.triangles", "render.cuda_triangles",
             "render.font", "render.overlay", "components", "components.ramachandran",
             "components.shapespace", "components.veloxchem", "components.density_volume",
             "components.dataset", "core.vlog", "io.basis", "io.vlx", "ops.gto", "ops.topo",

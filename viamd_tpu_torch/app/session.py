@@ -142,6 +142,7 @@ class Session:
         self.user_bonds: list = []
         self.recenter_selection: Optional[str] = None
         self._recenter_cache: Optional[tuple] = None  # (key, weights, segments)
+        self._ribbon_cache: Optional[tuple] = None  # (key, RibbonTables)
         self.camera: Optional[cam_mod.Camera] = None
         # component registry
         self.components: dict[str, object] = {}
@@ -364,6 +365,17 @@ class Session:
                 torch.as_tensor(np.asarray(sys.atom_res_idx, np.int64), device=self.device),
             )
         return self._recenter_cache[1], self._recenter_cache[2]
+
+    def _ribbon_tables(self):
+        """The system's ribbon mesh tables on the device
+        (render/ribbon_mesh.py::ribbon_tables), kept while the system
+        stays the same."""
+        from viamd_tpu_torch.render.ribbon_mesh import ribbon_tables
+
+        key = (id(self.system), self._system_rev)
+        if self._ribbon_cache is None or self._ribbon_cache[0] != key:
+            self._ribbon_cache = (key, ribbon_tables(self.system, device=self.device))
+        return self._ribbon_cache[1]
 
     def _apply_recenter(self, coords: torch.Tensor) -> torch.Tensor:
         if self.recenter_selection is None or not self.system.cell.is_periodic:
@@ -677,9 +689,10 @@ class Session:
             cols = color_mod.desaturate_colors(cols, ~self.selection)
         return cols
 
-    def _draw_rep(self, rep, cols, coords, coords_np, ss_w, cam, width, height, jitter):
+    def _draw_rep(self, rep, cols, coords, coords_np, ss_w, ss_t, cam, width, height, jitter):
         """One representation → (rgba, depth, pick) tensors, or None when
-        the rep failed (its `error` says why)."""
+        the rep failed (its `error` says why). `ss_w` is the secondary
+        structure's weights on the host, `ss_t` the same on the device."""
         from viamd_tpu_torch.render import raster
 
         dev = self.device
@@ -717,17 +730,22 @@ class Session:
             return out
         if rep.type in ("ribbons", "cartoon"):
             # true peptide-plane-oriented flat ribbon mesh with sheet
-            # arrowheads (md_gl RIBBONS/CARTOON, viamd.h:161-169)
-            from viamd_tpu_torch.render.ribbon_mesh import ribbon_mesh
-            from viamd_tpu_torch.render.triangles import render_triangles, view_transform
+            # arrowheads (md_gl RIBBONS/CARTOON, viamd.h:161-169); on a CUDA
+            # device csrc/ribbon.cu builds it in view space, so neither the
+            # mesh nor the coordinates cross the bus
+            from viamd_tpu_torch.render.ribbon_mesh import ribbon_view
+            from viamd_tpu_torch.render.triangles import render_triangles
 
+            tables = self._ribbon_tables()
             with section("cartoon.mesh"):
-                tris, src = ribbon_mesh(sys, coords_np, ss_weights=ss_w,
-                                        cartoon=rep.type == "cartoon",
-                                        width_scale=rep.radius_scale)
+                tv = ribbon_view(sys, coords, ss_t, cam.view_matrix(), tables,
+                                 cartoon=rep.type == "cartoon", width_scale=rep.radius_scale)
             with section("cartoon.upload"):
-                tv = view_transform(tris, cam.view_matrix(), device=dev)
-            return render_triangles(tv, cols[src], src, proj, width, height, device=dev)
+                # the CA atoms' colours, gathered per triangle on the device
+                ca_cols = torch.as_tensor(cols[sys.backbone.atom_ca], dtype=torch.float32,
+                                          device=dev)
+                tri_cols = ca_cols[tables.res]
+            return render_triangles(tv, tri_cols, tables.src, proj, width, height, device=dev)
         if rep.type == "tube":
             from viamd_tpu_torch.render.backbone_rep import backbone_tube
 
@@ -827,14 +845,13 @@ class Session:
             coords = self.device_coords()
             # host coordinates only where host code needs them
             need_host = show_script_vis or any(
-                r.dynamic or r.type in ("tube", "ribbons", "cartoon")
-                for r in reps
+                r.dynamic or r.type == "tube" for r in reps
             ) or (sys.instances is not None and sys.instances.nontrivial)
             coords_np = np.array(coords.cpu()) if need_host else None
         cam = self._camera()
         img = depth = pick = None
         transparent = []
-        ss_w = None
+        ss_w = ss_t = None
         for rep in reps:
             with section("render.colors"):
                 if rep.dynamic:
@@ -849,15 +866,13 @@ class Session:
                     from viamd_tpu_torch.render.backbone_rep import current_ss_weights
 
                     with section("cartoon.ss"):
-                        ss_w = (
-                            current_ss_weights(sys, coords, device=dev).cpu().numpy()
-                            if sys.backbone is not None
-                            else None
-                        )
+                        if sys.backbone is not None:
+                            ss_t = current_ss_weights(sys, coords, device=dev)
+                            ss_w = ss_t.cpu().numpy()
                 cols = self._rep_colors(rep, ss_w, show_selection)
             with section("render.draw"):
-                out = self._draw_rep(rep, cols, coords, coords_np, ss_w, cam, width, height,
-                                     jitter)
+                out = self._draw_rep(rep, cols, coords, coords_np, ss_w, ss_t, cam, width,
+                                     height, jitter)
             if out is None:
                 continue
             rgba, d, p = out

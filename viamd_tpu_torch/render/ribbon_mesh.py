@@ -19,13 +19,29 @@ quad-strip box (width × thickness) with secondary-structure styling:
 
 Outputs world-space triangles + per-triangle source CA atom ids so
 coloring and picking resolve per residue through render/triangles.py.
+
+`ribbon_view` is the session's route to view-space triangles: on a CUDA
+device one launch of csrc/ribbon.cu (render/cuda_ribbon.py), on the CPU
+`ribbon_mesh` then `view_transform`, which the kernel equals bit for bit.
+Both take the frame-independent `ribbon_tables` of the system, built once.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import numpy as np
+import torch
 
 from viamd_tpu_torch.core.system import System
+from viamd_tpu_torch.render import cuda_ribbon
+from viamd_tpu_torch.render.triangles import view_transform
+
+# the mesh's styling (Å): ribbon_mesh's defaults, which ribbon_view hands to
+# either route
+COIL_WIDTH, COIL_THICKNESS = 0.6, 0.5
+RIBBON_WIDTH, RIBBON_THICKNESS = 2.2, 0.35
+ARROW_SCALE = 1.6
 
 
 def _spline(P: np.ndarray, subdiv: int) -> np.ndarray:
@@ -60,11 +76,11 @@ def ribbon_mesh(
     ss_weights: np.ndarray | None = None,
     subdiv: int = 8,
     cartoon: bool = True,
-    coil_width: float = 0.6,
-    coil_thickness: float = 0.5,
-    ribbon_width: float = 2.2,
-    ribbon_thickness: float = 0.35,
-    arrow_scale: float = 1.6,
+    coil_width: float = COIL_WIDTH,
+    coil_thickness: float = COIL_THICKNESS,
+    ribbon_width: float = RIBBON_WIDTH,
+    ribbon_thickness: float = RIBBON_THICKNESS,
+    arrow_scale: float = ARROW_SCALE,
     width_scale: float = 1.0,
 ):
     """→ (tris (T,3,3) world, src (T,) int32 CA atom per triangle)."""
@@ -192,3 +208,79 @@ def ribbon_mesh(
         np.concatenate(tris_out).astype(np.float32),
         np.concatenate(src_out),
     )
+
+
+@dataclass(frozen=True)
+class RibbonTables:
+    """What a system's ribbon mesh at one `subdiv` keeps from frame to
+    frame, on a device: per chain of >= 2 backbone residues (as
+    `ribbon_mesh` draws them) its first residue, residues and first
+    triangle (`chains`, (n, 3) int32); the CA, C and O atom of every
+    backbone residue (`atoms`, (3, nbb) int32); and per triangle, in
+    `ribbon_mesh`'s order, its backbone residue (`res`, (count,) int64)
+    and CA atom (`src`, (count,) int32, `ribbon_mesh`'s sources)."""
+
+    subdiv: int
+    count: int
+    chains: torch.Tensor
+    atoms: torch.Tensor
+    res: torch.Tensor
+    src: torch.Tensor
+
+
+def ribbon_tables(sys: System, subdiv: int = 8, *, device) -> RibbonTables:
+    """The system's `RibbonTables` at `subdiv`, by `ribbon_mesh`'s rules:
+    8 face groups of (k - 1) * subdiv segments a chain, each segment owned
+    by the residue nearest its midpoint, then two caps at each end."""
+    bb = sys.backbone
+    if bb is None:
+        raise ValueError("system has no protein backbone")
+    chains, res = [], []
+    count = 0
+    for beg, end in np.asarray(bb.ranges, np.int64):
+        k = int(end - beg)
+        if k < 2:
+            continue
+        m = (k - 1) * subdiv + 1
+        mid = (np.arange(m - 1) + 0.5) / subdiv
+        seg = beg + np.clip(np.rint(mid).astype(np.int64), 0, k - 1)
+        res += [np.tile(seg, 8), np.array([beg, beg, end - 1, end - 1])]
+        chains.append((beg, k, count))
+        count += 8 * (m - 1) + 4
+    if not chains:
+        raise ValueError("backbone ranges too short for a ribbon")
+    res = np.concatenate(res)
+    atoms = np.stack([bb.atom_ca, bb.atom_c, bb.atom_o]).astype(np.int32)
+    dev = torch.device(device)
+    return RibbonTables(
+        subdiv=subdiv, count=count,
+        chains=torch.as_tensor(np.asarray(chains, np.int32), device=dev),
+        atoms=torch.as_tensor(atoms, device=dev),
+        res=torch.as_tensor(res, device=dev),
+        src=torch.as_tensor(atoms[0][res], device=dev),
+    )
+
+
+def ribbon_view(sys: System, coords: torch.Tensor, ss_weights, view, tables: RibbonTables,
+                *, cartoon: bool = True, coil_width: float = COIL_WIDTH,
+                coil_thickness: float = COIL_THICKNESS, ribbon_width: float = RIBBON_WIDTH,
+                ribbon_thickness: float = RIBBON_THICKNESS, arrow_scale: float = ARROW_SCALE,
+                width_scale: float = 1.0) -> torch.Tensor:
+    """The ribbon or cartoon mesh of one frame in view space: (count, 3, 3)
+    float32 on `coords`' device. `ss_weights` is a (nbb, 3) tensor there,
+    or None; the keywords are `ribbon_mesh`'s but `subdiv`, which the
+    tables fix. CUDA tensors go to csrc/ribbon.cu, CPU tensors to
+    `ribbon_mesh` and `view_transform`."""
+    style = dict(subdiv=tables.subdiv, cartoon=cartoon, coil_width=coil_width,
+                 coil_thickness=coil_thickness, ribbon_width=ribbon_width,
+                 ribbon_thickness=ribbon_thickness, arrow_scale=arrow_scale,
+                 width_scale=width_scale)
+    dev = coords.device
+    if dev.type == "cuda":
+        return cuda_ribbon.mesh(coords.contiguous(), ss_weights, tables.chains, tables.atoms,
+                                tables.count, view, **style)
+    if dev.type != "cpu":
+        raise ValueError(f"no ribbon mesh for device {dev}")
+    ss = None if ss_weights is None else ss_weights.numpy()
+    tris, _ = ribbon_mesh(sys, coords.numpy(), ss_weights=ss, **style)
+    return view_transform(tris, view, device=dev)
