@@ -3095,8 +3095,8 @@ def density_volume_check(dev, n_waters: int, width: int, height: int) -> str:
 
 SESSION_TAA_FRAMES, SESSION_OUTLINE = 16, "residue(1:2000)"
 SESSION_STAGES = ("raster", "outline", "volume", "postprocess")
-KERNEL_MODULES = (cuda_rdf, cuda_raster, cuda_volume, cuda_triangles, cuda_gto, cuda_hbao,
-                  cuda_ribbon)
+# the modules that declare a CUDA kernel library, each with its `launches`
+KERNEL_MODULES = tuple(m for m in cuda_build.declared() if m.LIBRARY.compiler == "nvcc")
 
 
 def reset_launches() -> None:
@@ -3105,7 +3105,7 @@ def reset_launches() -> None:
 
 
 def read_launches() -> dict:
-    return {mod.LIBRARY[0]: mod.launches for mod in KERNEL_MODULES}
+    return {mod.LIBRARY.name: mod.launches for mod in KERNEL_MODULES}
 
 
 @contextlib.contextmanager
@@ -3790,11 +3790,12 @@ def main() -> None:
 
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    cuda_build.build(dict(mod.LIBRARY for mod in KERNEL_MODULES))
+    cuda_build.build(mod.LIBRARY for mod in KERNEL_MODULES)
     lines = []
     for mod in KERNEL_MODULES:
-        secs = mod.load_kernel()
-        name = mod.LIBRARY[0]
+        mod.LIBRARY.load()
+        name = mod.LIBRARY.name
+        secs = cuda_build.build_info[name]["seconds"]
         ptxas = [
             ln.strip() for ln in cuda_build.build_info[name]["log"].splitlines()
             if "registers" in ln or "spill" in ln

@@ -30,7 +30,7 @@ for mod in ("ops.cuda_rdf", "render.camera", "render.color", "render.cuda_raster
             "render.raster", "render.hbao", "render.fxaa", "render.postprocess",
             "ops.bonds", "ops.geometry", "ops.com", "ops.covariance", "ops.rmsd",
             "ops.pbc", "ops.rdf", "core.system", "script.compiler", "script.filterlang",
-            "native", "eval.engine", "io.trajectory", "io.loader", "io.xtc", "io.trr",
+            "cuda_build", "eval.engine", "io.trajectory", "io.loader", "io.xtc", "io.trr",
             "io.dcd", "io.cache", "io.gro", "io.pdb", "io.xyz", "io.mmcif", "io.lammps",
             "io.edr", "io.xvg", "io.csv", "render.volume", "render.cuda_volume",
             "render.colormap", "render.bokeh", "render.taa", "ops.histogram",
@@ -66,17 +66,19 @@ def test_host_codecs_build_and_load(tmp_path, monkeypatch):
     """The host codecs build with g++ into a keyed shared object under
     `_build/` (here a fresh directory, so the build runs) and load; a
     second load reuses the object."""
-    from viamd_tpu_torch import native
+    from viamd_tpu_torch import cuda_build
+    from viamd_tpu_torch.io import pdb, xtc
 
-    monkeypatch.setattr(native, "BUILD_DIR", tmp_path)
-    monkeypatch.setattr(native, "_loaded", {})
-    for name, sources in (native.XTC, native.FASTPARSE):
-        out = native.target(name, sources)
-        assert out.parent == tmp_path and not out.exists()
-        lib = native.load_library(name, sources)
-        assert out.exists() and native.load_library(name, sources) is lib
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(cuda_build, "_loaded", {})
+    monkeypatch.setattr(cuda_build, "build_info", {})
+    for lib in (xtc.LIBRARY, pdb.LIBRARY):
+        out = lib.target()
+        assert lib.compiler == "g++" and out.parent == tmp_path and not out.exists()
+        cdll = lib.load()
+        assert out.exists() and lib.load() is cdll
         assert not list(tmp_path.glob("*.tmp.so"))
-    assert hasattr(native.load_library(*native.XTC), "xtc_read_frames")
-    assert hasattr(native.load_library(*native.FASTPARSE), "pdb_parse_coords")
-    assert native.target(*native.XTC).parent == tmp_path
-    assert native.target(*native.XTC) != native.target(*native.FASTPARSE)
+    assert hasattr(xtc.LIBRARY.load(), "xtc_read_frames")
+    assert hasattr(pdb.LIBRARY.load(), "pdb_parse_coords")
+    assert xtc.LIBRARY.target().parent == tmp_path
+    assert xtc.LIBRARY.target() != pdb.LIBRARY.target()

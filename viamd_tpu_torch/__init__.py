@@ -8,7 +8,7 @@ same relative path; hand-written CUDA kernels live in `csrc/`.
 The package imports torch and numpy only: never jax, and never anything
 under `viamd_tpu` (whose package import pulls in jax). Host-only modules it
 needs are carried as numpy copies, its host C++ codecs (`csrc/host/`) as
-copies built by `native.py`.
+copies built by `cuda_build.py`.
 
 Covered so far: file loading (`io.load_file`), the script language
 (`script.compile_script`), evaluation over staged or streamed

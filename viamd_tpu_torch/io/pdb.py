@@ -13,10 +13,13 @@ trajectories load at memory bandwidth rather than Python-loop speed.
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 
 from viamd_tpu_torch.core.system import System, build_system, postprocess
 from viamd_tpu_torch.core.unitcell import UnitCell
+from viamd_tpu_torch.cuda_build import Library
 from viamd_tpu_torch.io.trajectory import InMemoryTrajectory
 
 
@@ -199,22 +202,20 @@ def parse_pdb(text: bytes | str) -> tuple[System, InMemoryTrajectory | None]:
     return sys, traj
 
 
+LIBRARY = Library("vtt_fastparse", ("host/fastparse.cpp",), {
+    "pdb_parse_coords": (ctypes.c_int32, [
+        ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_float),
+    ]),
+})
+
+
 def _parse_frames_native(text: bytes, natoms: int, nframes: int):
     """Multi-frame coordinate pass through the host parser
     (csrc/host/fastparse.cpp); None when the file does not parse there, so
     the Python pass names the fault. A failed build raises."""
-    import ctypes
-
-    from viamd_tpu_torch import native
-
-    lib = native.load_library(*native.FASTPARSE)
-    lib.pdb_parse_coords.restype = ctypes.c_int32
-    lib.pdb_parse_coords.argtypes = [
-        ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-        ctypes.POINTER(ctypes.c_float),
-    ]
     coords = np.empty((nframes, natoms, 3), np.float32)
-    rc = lib.pdb_parse_coords(
+    rc = LIBRARY.load().pdb_parse_coords(
         text, len(text), natoms, nframes,
         coords.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
     )

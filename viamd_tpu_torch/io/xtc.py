@@ -2,7 +2,7 @@
 
 Counterpart of viamd_tpu.io.xtc (mdlib's md_xtc.h). Decoding runs in the
 port's copy of the codec (`csrc/host/xtc.cpp`, built by
-`viamd_tpu_torch.native`); the scan at open records each frame's byte
+`viamd_tpu_torch.cuda_build`); the scan at open records each frame's byte
 range, time and box, so frames are read by range (O(1) random access, no
 read of the rest of the file) and `cells` needs no decode. nm → Å.
 """
@@ -14,8 +14,8 @@ import os
 
 import numpy as np
 
-from viamd_tpu_torch import native
 from viamd_tpu_torch.core.unitcell import UnitCell
+from viamd_tpu_torch.cuda_build import Library
 from viamd_tpu_torch.io.trajectory import Trajectory
 
 NM_TO_ANGSTROM = 10.0
@@ -24,24 +24,18 @@ _i64p = ctypes.POINTER(ctypes.c_int64)
 _f32p = ctypes.POINTER(ctypes.c_float)
 
 
-def _lib():
-    lib = native.load_library(*native.XTC)
-    lib.xtc_scan.restype = ctypes.c_int64
-    lib.xtc_scan.argtypes = [
+LIBRARY = Library("vtt_xtc", ("host/xtc.cpp",), {
+    "xtc_scan": (ctypes.c_int64, [
         ctypes.c_char_p, ctypes.c_int64, _i64p, _i64p,
         ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_double), _f32p,
-    ]
-    lib.xtc_read_frames.restype = ctypes.c_int32
-    lib.xtc_read_frames.argtypes = [
-        ctypes.c_char_p, _i64p, _i64p, ctypes.c_int64, ctypes.c_int32,
-        _f32p, _f32p,
-    ]
-    lib.xtc_write_frames.restype = ctypes.c_int32
-    lib.xtc_write_frames.argtypes = [
-        ctypes.c_char_p, _f32p, _f32p, ctypes.c_int64, ctypes.c_int32,
-        ctypes.c_float,
-    ]
-    return lib
+    ]),
+    "xtc_read_frames": (ctypes.c_int32, [
+        ctypes.c_char_p, _i64p, _i64p, ctypes.c_int64, ctypes.c_int32, _f32p, _f32p,
+    ]),
+    "xtc_write_frames": (ctypes.c_int32, [
+        ctypes.c_char_p, _f32p, _f32p, ctypes.c_int64, ctypes.c_int32, ctypes.c_float,
+    ]),
+})
 
 
 def _ptr(a: np.ndarray, kind):
@@ -51,7 +45,7 @@ def _ptr(a: np.ndarray, kind):
 class XTCTrajectory(Trajectory):
     def __init__(self, path: str, max_frames: int | None = None):
         self.path = path
-        lib = _lib()
+        lib = LIBRARY.load()
         if max_frames is None:
             # a frame takes at least 56 bytes (header, box, atom count)
             max_frames = os.path.getsize(path) // 56 + 1
@@ -105,7 +99,7 @@ class XTCTrajectory(Trajectory):
             raise ValueError(f"XTC: output must be C-contiguous float32 "
                              f"{(idx.size, self._natoms, 3)}")
         boxes = np.empty((idx.size, 9), np.float32)
-        rc = _lib().xtc_read_frames(
+        rc = LIBRARY.load().xtc_read_frames(
             self.path.encode(), _ptr(offs, _i64p), _ptr(ends, _i64p), idx.size,
             self._natoms, _ptr(coords, _f32p), _ptr(boxes, _f32p),
         )
@@ -137,7 +131,7 @@ def write_xtc(
 ):
     """Write frames as XTC (tests and the export path); the same bytes as
     viamd_tpu.io.xtc.write_xtc."""
-    lib = _lib()
+    lib = LIBRARY.load()
     coords = np.ascontiguousarray(
         np.asarray(coords, np.float32) / NM_TO_ANGSTROM
     )

@@ -38,7 +38,7 @@ import ctypes
 import numpy as np
 import torch
 
-from viamd_tpu_torch.cuda_build import build_info, check_tensor as _check, load_library
+from viamd_tpu_torch.cuda_build import Library, check_tensor as _check
 
 __all__ = [
     "BRICK",
@@ -51,7 +51,6 @@ __all__ = [
     "brick_voxels",
     "grid_block",
     "launches",
-    "load_kernel",
     "padded_columns",
     "prim_table",
     "psi_grid",
@@ -70,30 +69,11 @@ MAX_PRIMITIVES = 65535  # ρ's kept list holds 2-byte indices
 # kernel launches since import (reset freely by callers that count a run)
 launches = 0
 
-# (library name, sources in csrc/) for cuda_build
-LIBRARY = ("gto", ("gto.cu",))
-
-_lib = None
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        lib = load_library(*LIBRARY)
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.gto_psi_launch.argtypes = [vp, ci, vp, ci, ci, ci, ci, vp, vp]
-        lib.gto_psi_launch.restype = ci
-        lib.gto_rho_launch.argtypes = [vp, ci, vp, vp, vp, ci, vp, ci, ci, ci, ci, vp, vp]
-        lib.gto_rho_launch.restype = ci
-        _lib = lib
-    return _lib
-
-
-def load_kernel() -> float:
-    """Build (first call) and load the kernel library; returns the build
-    seconds, 0 when an earlier build was reused."""
-    _library()
-    return build_info[LIBRARY[0]]["seconds"]
+_p, _i = ctypes.c_void_p, ctypes.c_int
+LIBRARY = Library("gto", ("gto.cu",), {
+    "gto_psi_launch": (_i, [_p, _i, _p, _i, _i, _i, _i, _p, _p]),
+    "gto_rho_launch": (_i, [_p, _i, _p, _p, _p, _i, _p, _i, _i, _i, _i, _p, _p]),
+})
 
 
 def prim_table(centers: torch.Tensor, exponents: torch.Tensor, lmn: torch.Tensor,
@@ -134,7 +114,7 @@ def psi_grid(table: torch.Tensor, grid: tuple, dims) -> torch.Tensor:
     K = table.shape[0]
     _check(table, "table", torch.float32, (K, 8), dev)
     nx, ny, nz = (int(d) for d in dims)
-    lib = _library()
+    lib = LIBRARY.load()
     out = torch.empty((nx, ny, nz), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
@@ -187,7 +167,7 @@ def rho_grid(table: torch.Tensor, A: torch.Tensor, B: torch.Tensor | None, w: to
         raise ValueError(f"the gto kernel runs on CUDA tensors, not {dev}")
     A, B, w = _rho_args(table, A, B, w, dev)
     nx, ny, nz = (int(d) for d in dims)
-    lib = _library()
+    lib = LIBRARY.load()
     out = torch.empty((nx, ny, nz), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out

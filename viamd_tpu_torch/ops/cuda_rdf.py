@@ -32,7 +32,7 @@ import ctypes
 import numpy as np
 import torch
 
-from viamd_tpu_torch.cuda_build import build_info, load_library, check_tensor as _check
+from viamd_tpu_torch.cuda_build import Library, check_tensor as _check
 from viamd_tpu_torch.ops.neighbors import build_cell_list, frac_coords
 from viamd_tpu_torch.ops.rdf import (
     min_image_sq,
@@ -56,34 +56,11 @@ __all__ = [
 # kernel launches since import (reset freely by callers that count a run)
 launches = 0
 
-# (library name, sources in csrc/) for cuda_build
-LIBRARY = ("pair_hist", ("pair_hist.cu",))
-
-_lib = None
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        lib = load_library(*LIBRARY)
-        lib.pair_hist_launch.argtypes = [ctypes.c_void_p] * 8 + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_float, ctypes.c_float, ctypes.c_float,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p,
-        ]
-        lib.pair_hist_launch.restype = ctypes.c_int
-        lib.pair_hist_max_bins.argtypes = []
-        lib.pair_hist_max_bins.restype = ctypes.c_int
-        _lib = lib
-    return _lib
-
-
-def load_kernel() -> float:
-    """Build (first call) and load the kernel library; returns the build
-    seconds, 0 when an earlier build was reused."""
-    _library()
-    return build_info[LIBRARY[0]]["seconds"]
+_i, _f, _p = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
+LIBRARY = Library("pair_hist", ("pair_hist.cu",), {
+    "pair_hist_launch": (_i, [_p] * 8 + [_i] * 4 + [_f] * 3 + [_i] * 4 + [_p, _p]),
+    "pair_hist_max_bins": (_i, []),
+})
 
 
 def sqrt_reject_bound(r_max: float) -> float:
@@ -164,7 +141,7 @@ def _pair_hist_counts(xa, ida, a_start, xb, idb, b_start, basis, inv_basis, dims
         raise ValueError(f"pair_hist_cells needs CUDA tensors, got {dev}")
     _check_radius(radius, dims)
     lo, hi = _window(rows, dims)
-    lib = _library()
+    lib = LIBRARY.load()
     if not 0 < nbins <= lib.pair_hist_max_bins():
         raise ValueError(f"nbins {nbins} outside (0, {lib.pair_hist_max_bins()}]")
     ncells = dims[0] * dims[1] * dims[2]

@@ -32,13 +32,13 @@ TIMEOUT = 900.0  # seconds for the whole run, every rank's step included
 
 def dryrun_multichip(n_devices: int, device="cuda") -> list:
     """Run the dry run on `n_devices` ranks of `device`; prints and returns
-    its "ok" lines. On CUDA the kernels are built here first, so that the
-    ranks only load them."""
+    its "ok" lines. On CUDA the libraries that the ranks' modules declare
+    are built here first, so that the ranks only load them."""
     if torch.device(device).type == "cuda":
         from viamd_tpu_torch import cuda_build
-        from viamd_tpu_torch.ops import cuda_rdf
+        from viamd_tpu_torch.parallel import programs  # noqa: F401  (what the ranks run)
 
-        cuda_build.build(dict([cuda_rdf.LIBRARY]))
+        cuda_build.build(m.LIBRARY for m in cuda_build.declared())
     lines = spawn(_dryrun_rank, n_devices, device, n_devices, timeout=TIMEOUT)[0]
     for line in lines:
         print(line, flush=True)

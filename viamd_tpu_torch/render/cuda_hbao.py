@@ -23,49 +23,29 @@ import ctypes
 import numpy as np
 import torch
 
-from viamd_tpu_torch.cuda_build import build_info, check_tensor as _check, load_library
+from viamd_tpu_torch.cuda_build import Library, check_tensor as _check
 from viamd_tpu_torch.render.hbao import (_GLOBAL_MIP_OFFSET, _N_MIPS, _N_SAMPLES, _TILE,
                                          _finite_or, _jitter_tables, _phase_tables, proj_info)
 
 __all__ = ["LIBRARY", "TIE", "ao_scalars", "blur_scalars", "check_inputs", "hbao", "launches",
-           "level_shapes", "load_kernel", "mips", "pow_mode", "table_image", "tie_pixels"]
+           "level_shapes", "mips", "pow_mode", "table_image", "tie_pixels"]
 
 # kernel launches since import (reset freely by callers that count a run)
 launches = 0
 
-# (library name, sources in csrc/) for cuda_build
-LIBRARY = ("hbao", ("hbao.cu",))
-
-_lib = None
 _tables_on: set = set()  # device indices whose __constant__ tables are loaded
 
 _F32 = np.float32
 
 
-def _library():
-    global _lib
-    if _lib is None:
-        lib = load_library(*LIBRARY)
-        vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.hbao_table_floats.argtypes = []
-        lib.hbao_set_tables.argtypes = [vp, i]
-        lib.hbao_mips_launch.argtypes = [vp, i, i, vp, i, vp]
-        lib.hbao_ao_launch.argtypes = [vp, vp, vp, i, i, i, i, i, vp, vp, vp]
-        lib.hbao_blur_launch.argtypes = [vp, vp, i, i, i, vp, vp, vp]
-        for fn in (lib.hbao_table_floats, lib.hbao_set_tables,
-                   lib.hbao_mips_launch, lib.hbao_ao_launch, lib.hbao_blur_launch):
-            fn.restype = i
-        if lib.hbao_table_floats() != table_image().size:
-            raise RuntimeError("csrc/hbao.cu and render/cuda_hbao.py disagree on the tables")
-        _lib = lib
-    return _lib
-
-
-def load_kernel() -> float:
-    """Build (first call) and load the kernel library; returns the build
-    seconds, 0 when an earlier build was reused."""
-    _library()
-    return build_info[LIBRARY[0]]["seconds"]
+_p, _i = ctypes.c_void_p, ctypes.c_int
+LIBRARY = Library("hbao", ("hbao.cu",), {
+    "hbao_table_floats": (_i, []),
+    "hbao_set_tables": (_i, [_p, _i]),
+    "hbao_mips_launch": (_i, [_p, _i, _i, _p, _i, _p]),
+    "hbao_ao_launch": (_i, [_p, _p, _p, _i, _i, _i, _i, _i, _p, _p, _p]),
+    "hbao_blur_launch": (_i, [_p, _p, _i, _i, _i, _p, _p, _p]),
+}, check=lambda lib: lib.hbao_table_floats() == table_image().size)
 
 
 def table_image() -> np.ndarray:
@@ -185,8 +165,8 @@ def mips(view_depth: torch.Tensor) -> torch.Tensor:
     H, W = view_depth.shape
     n = sum(h * w for h, w in level_shapes(H, W))
     out = torch.empty(n, dtype=torch.float32, device=view_depth.device)
-    err = _library().hbao_mips_launch(view_depth.data_ptr(), W, H, out.data_ptr(), n,
-                                      _stream(view_depth.device))
+    err = LIBRARY.load().hbao_mips_launch(view_depth.data_ptr(), W, H, out.data_ptr(), n,
+                                          _stream(view_depth.device))
     if err != 0:
         raise RuntimeError(f"hbao mips launch failed: CUDA error {err}")
     launches += 1
@@ -199,7 +179,7 @@ def _load_tables(dev) -> None:
         return
     image = table_image()
     with torch.cuda.device(index):
-        err = _library().hbao_set_tables(image.ctypes.data, image.size)
+        err = LIBRARY.load().hbao_set_tables(image.ctypes.data, image.size)
     if err != 0:
         raise RuntimeError(f"hbao table upload failed: CUDA error {err}")
     _tables_on.add(index)
@@ -218,7 +198,7 @@ def hbao(view_depth: torch.Tensor, normals=None, *, info, proj_scl: float, z_max
     check_inputs(view_depth, normals)
     dev = view_depth.device
     H, W = view_depth.shape
-    lib = _library()
+    lib = LIBRARY.load()
     _load_tables(dev)
     levels = mips(view_depth)
     scal, mode = ao_scalars(H, W, info=info, proj_scl=proj_scl, z_max=z_max, ortho=ortho,

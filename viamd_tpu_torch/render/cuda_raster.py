@@ -42,7 +42,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from viamd_tpu_torch.cuda_build import build_info, load_library, check_tensor as _check
+from viamd_tpu_torch.cuda_build import Library, check_tensor as _check
 from viamd_tpu_torch.ops.rdf import sqrt_rn
 
 __all__ = [
@@ -52,7 +52,6 @@ __all__ = [
     "Shading",
     "cull_depth",
     "launches",
-    "load_kernel",
     "near_depth_capsules",
     "near_depth_spheres",
     "raster_tiles",
@@ -72,11 +71,6 @@ CULL_ABS = 1e-3
 
 # kernel launches since import (reset freely by callers that count a run)
 launches = 0
-
-# (library name, sources in csrc/) for cuda_build
-LIBRARY = ("raster", ("raster.cu",))
-
-_lib = None
 
 
 class Shading(NamedTuple):
@@ -102,29 +96,11 @@ class Shading(NamedTuple):
     bg_b: float
 
 
-def _library():
-    global _lib
-    if _lib is None:
-        lib = load_library(*LIBRARY)
-        lib.raster_launch.argtypes = [ctypes.c_void_p] * 8 + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p,
-        ]
-        lib.raster_launch.restype = ctypes.c_int
-        lib.raster_num_params.argtypes = []
-        lib.raster_num_params.restype = ctypes.c_int
-        if lib.raster_num_params() != len(Shading._fields):
-            raise RuntimeError("csrc/raster.cu and Shading disagree on the parameters")
-        _lib = lib
-    return _lib
-
-
-def load_kernel() -> float:
-    """Build (first call) and load the kernel library; returns the build
-    seconds, 0 when an earlier build was reused."""
-    _library()
-    return build_info[LIBRARY[0]]["seconds"]
+_p, _i = ctypes.c_void_p, ctypes.c_int
+LIBRARY = Library("raster", ("raster.cu",), {
+    "raster_launch": (_i, [_p] * 8 + [_i] * 4 + [_p] * 5),
+    "raster_num_params": (_i, []),
+}, check=lambda lib: lib.raster_num_params() == len(Shading._fields))
 
 
 def near_depth_spheres(sph: torch.Tensor) -> torch.Tensor:
@@ -182,7 +158,7 @@ def raster_tiles(
     _check(s_list, "s_list", torch.int32, (s_list.shape[0],), dev)
     _check(c_start, "c_start", torch.int32, (ntiles + 1,), dev)
     _check(c_list, "c_list", torch.int32, (c_list.shape[0],), dev)
-    lib = _library()
+    lib = LIBRARY.load()
     rgba = torch.empty((height, width, 4), dtype=torch.float32, device=dev)
     depth = torch.empty((height, width), dtype=torch.float32, device=dev)
     pick = torch.empty((height, width), dtype=torch.int32, device=dev)

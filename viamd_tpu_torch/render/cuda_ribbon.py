@@ -26,39 +26,21 @@ import ctypes
 import numpy as np
 import torch
 
-from viamd_tpu_torch.cuda_build import build_info, check_tensor as _check, load_library
+from viamd_tpu_torch.cuda_build import Library, check_tensor as _check
 
-__all__ = ["LIBRARY", "launches", "load_kernel", "mesh", "triangles"]
+__all__ = ["LIBRARY", "launches", "mesh", "triangles"]
 
 # kernel launches since import, and the triangles they wrote, summed (reset
 # freely by callers that count a run)
 launches = 0
 triangles = 0
 
-# (library name, sources in csrc/) for cuda_build
-LIBRARY = ("ribbon", ("ribbon.cu",))
+_p, _i, _d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+LIBRARY = Library("ribbon", ("ribbon.cu",), {
+    "ribbon_launch": (_i, [_p] * 6 + [_i, _p, _i, _i] + [_d] * 6 + [_p, _p, _p]),
+})
 
 _WORK = 5  # the kernel's float64 scratch per backbone residue (kWork)
-
-_lib = None
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        lib = load_library(*LIBRARY)
-        vp, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-        lib.ribbon_launch.argtypes = [vp] * 6 + [i, vp, i, i] + [d] * 6 + [vp, vp, vp]
-        lib.ribbon_launch.restype = i
-        _lib = lib
-    return _lib
-
-
-def load_kernel() -> float:
-    """Build (first call) and load the kernel library; returns the build
-    seconds, 0 when an earlier build was reused."""
-    _library()
-    return build_info[LIBRARY[0]]["seconds"]
 
 
 def mesh(coords, ss, chains, atoms, count: int, view, *, subdiv: int, cartoon: bool,
@@ -80,7 +62,7 @@ def mesh(coords, ss, chains, atoms, count: int, view, *, subdiv: int, cartoon: b
         _check(ss, "ss", torch.float32, (nbb, 3), dev)
     if subdiv < 1:
         raise ValueError(f"subdiv must be at least 1, not {subdiv}")
-    lib = _library()
+    lib = LIBRARY.load()
     out = torch.empty((count, 3, 3), dtype=torch.float32, device=dev)
     work = torch.empty((nbb, _WORK), dtype=torch.float64, device=dev)
     rows = (ctypes.c_float * 12)(*np.asarray(view, np.float32)[:3].reshape(-1).tolist())

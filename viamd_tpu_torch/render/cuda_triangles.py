@@ -21,9 +21,9 @@ import ctypes
 
 import torch
 
-from viamd_tpu_torch.cuda_build import build_info, check_tensor as _check, load_library
+from viamd_tpu_torch.cuda_build import Library, check_tensor as _check
 
-__all__ = ["LIBRARY", "TILE", "launches", "load_kernel", "raster", "triangles"]
+__all__ = ["LIBRARY", "TILE", "launches", "raster", "triangles"]
 
 TILE = 16  # pixels per screen tile side; one kernel block per tile
 
@@ -32,28 +32,10 @@ TILE = 16  # pixels per screen tile side; one kernel block per tile
 launches = 0
 triangles = 0
 
-# (library name, sources in csrc/) for cuda_build
-LIBRARY = ("triangles", ("triangles.cu",))
-
-_lib = None
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        lib = load_library(*LIBRARY)
-        lib.triangles_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
-            ctypes.c_float] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 4
-        lib.triangles_launch.restype = ctypes.c_int
-        _lib = lib
-    return _lib
-
-
-def load_kernel() -> float:
-    """Build (first call) and load the kernel library; returns the build
-    seconds, 0 when an earlier build was reused."""
-    _library()
-    return build_info[LIBRARY[0]]["seconds"]
+_p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+LIBRARY = Library("triangles", ("triangles.cu",), {
+    "triangles_launch": (_i, [_p] * 5 + [_i] * 4 + [_f] * 5 + [_i] + [_p] * 4),
+})
 
 
 def raster(tri, color, pick, start, lst, width: int, height: int,
@@ -72,7 +54,7 @@ def raster(tri, color, pick, start, lst, width: int, height: int,
     _check(pick, "pick", torch.int32, (T,), dev)
     _check(start, "start", torch.int32, (tiles_x * tiles_y + 1,), dev)
     _check(lst, "lst", torch.int32, (lst.shape[0],), dev)
-    lib = _library()
+    lib = LIBRARY.load()
     rgba = torch.empty((height, width, 4), dtype=torch.float32, device=dev)
     depth = torch.empty((height, width), dtype=torch.float32, device=dev)
     out_pick = torch.empty((height, width), dtype=torch.int32, device=dev)

@@ -54,7 +54,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from viamd_tpu_torch.cuda_build import build_info, check_tensor as _check, load_library
+from viamd_tpu_torch.cuda_build import Library, check_tensor as _check
 from viamd_tpu_torch.ops.rdf import div_rn, sqrt_rn
 
 __all__ = [
@@ -65,7 +65,6 @@ __all__ = [
     "REF_SAMPLING_RATE",
     "RayParams",
     "launches",
-    "load_kernel",
     "march_plain",
     "ray_box",
     "ray_setup",
@@ -88,11 +87,6 @@ UNDECIDED_S, UNDECIDED_ALPHA, UNDECIDED_T = 1e-4, 1e-5, 1e-5
 
 # kernel launches since import (reset freely by callers that count a run)
 launches = 0
-
-# (library name, sources in csrc/) for cuda_build
-LIBRARY = ("volume", ("volume.cu",))
-
-_lib = None
 
 
 class MarchParams(NamedTuple):
@@ -135,35 +129,14 @@ class RayParams(NamedTuple):
     clip_max: tuple
 
 
-def _library():
-    global _lib
-    if _lib is None:
-        lib = load_library(*LIBRARY)
-        lib.volume_launch.argtypes = [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ]
-        lib.volume_launch.restype = ctypes.c_int
-        lib.volume_max_iso.argtypes = []
-        lib.volume_max_iso.restype = ctypes.c_int
-        lib.volume_num_rays.argtypes = []
-        lib.volume_num_rays.restype = ctypes.c_int
-        if (lib.volume_max_iso(), lib.volume_num_rays()) != (MAX_ISO, len(RAY_FIELDS)):
-            raise RuntimeError("csrc/volume.cu and render/cuda_volume.py disagree")
-        _lib = lib
-    return _lib
-
-
-def load_kernel() -> float:
-    """Build (first call) and load the kernel library; returns the build
-    seconds, 0 when an earlier build was reused."""
-    _library()
-    return build_info[LIBRARY[0]]["seconds"]
+_p, _i = ctypes.c_void_p, ctypes.c_int
+LIBRARY = Library("volume", ("volume.cu",), {
+    "volume_launch": (_i, [_p, _i, _i, _i, _p, _i, _p, _i, _i, _i, _p, _p] + [_i] * 6
+                      + [_p] * 7),
+    "volume_max_iso": (_i, []),
+    "volume_num_rays": (_i, []),
+}, check=lambda lib: (lib.volume_max_iso(), lib.volume_num_rays()) == (MAX_ISO,
+                                                                        len(RAY_FIELDS)))
 
 
 # -- samplers (render/volume.py re-exports them) -------------------------------
@@ -359,7 +332,7 @@ def render(grid, tf, cvol, rays: RayParams, march: MarchParams, jitter=None,
         _check(scene_depth, "scene_depth", torch.float32, (H, W), dev)
     if rays_out is not None:
         _check(rays_out, "rays_out", torch.float32, (len(RAY_FIELDS), P), dev)
-    lib = _library()
+    lib = LIBRARY.load()
     rgba = torch.empty((H, W, 4), dtype=torch.float32, device=dev)
     depth = torch.empty((H, W), dtype=torch.float32, device=dev)
     m = march
