@@ -16,8 +16,8 @@ spacefill and in licorice (133,336 bond half-capsules) — through
 render.raster.render_molecules → render.postprocess.execute (HBAO, ACES,
 compose, FXAA 3.11). Then the volume view (phase 16), the protein views
 (17–18), the VeloxChem and SDF windows (19–20), the app layer (21) and
-multi-device evaluation with ranks sharing the card (22). Phases, one
-result line each (several for 16–22):
+multi-device evaluation with ranks sharing the card (22) and the per-atom
+colours (23). Phases, one result line each (several for 16–22):
 
 1. the device (fails without CUDA; nothing falls back to the CPU);
 2. the build of the hand-written CUDA kernels from csrc/ (one nvcc per
@@ -195,7 +195,7 @@ result line each (several for 16–22):
    `render demo --postprocess` in a process of its own, the viewer on
    127.0.0.1 (/api/state, /render at full width, /api/orbit), and the
    demo's cartoon with an orbital composited in-scene; launch counts of
-   all seven kernels set to 0 before and read after. Its `[hbao]` line:
+   all eight kernels set to 0 before and read after. Its `[hbao]` line:
    csrc/hbao.cu on the session's 1920×1080 depth — the kernel against
    `hbao_plain` on the card (largest difference, bit-equal share; it raises
    unless the two are equal bit for bit outside `cuda_hbao.tie_pixels`), its
@@ -222,7 +222,18 @@ result line each (several for 16–22):
    one rank over the same frames: frames/s with the ranks sharing one card
    (no speed-up can show), the ranks' own launch counts set to 0 before
    and read after, host waits a frame. Then the dry run,
-   parallel.dryrun.dryrun_multichip(4), and its six "ok" lines.
+   parallel.dryrun.dryrun_multichip(4), and its six "ok" lines;
+23. `[colors]`: csrc/colors.cu at the cells' sizes — the stmv.cartoon
+   capsid's SS colours over its 9,540 CA atoms (the cartoon's launch) and
+   over all 1,066,628 atoms with the radii, and a 1,000,002-atom water
+   box's CPK colours with the radii (water1m.view's launch), each with the
+   cell's filter and selection: the kernel against colors_plain on the
+   card bit for bit and against the numpy chain of render/color.py that
+   the session ran before (alpha and radii bit-equal, rgb within 1e-6),
+   one launch a call, its device time behind a queued sleep and with
+   events around the call, its host time behind a queued sleep (it raises
+   if the launch waits on the device), the byte bound, the plain
+   version's time, and the numpy chain's host time with its upload.
 
 Ends with a JSON line of kernel results, the `nvidia-smi` name/power-limit
 line, and the JSON status line. Any failure raises (non-zero exit).
@@ -267,7 +278,7 @@ from viamd_tpu_torch.ops.neighbors import (
 )
 from viamd_tpu_torch.ops.pbc import inv_basis_of
 from viamd_tpu_torch.ops.rdf import pair_dist_histogram_scatter_idx, sqrt_rn
-from viamd_tpu_torch.render import cuda_hbao, cuda_raster, cuda_volume, postprocess
+from viamd_tpu_torch.render import cuda_colors, cuda_hbao, cuda_raster, cuda_volume, postprocess
 from viamd_tpu_torch.render import hbao as hbao_mod
 from viamd_tpu_torch.render import raster as raster_mod
 from viamd_tpu_torch.render.camera import (
@@ -302,7 +313,9 @@ from viamd_tpu_torch.io.trajectory import InMemoryTrajectory
 from viamd_tpu_torch.render import cuda_ribbon, cuda_triangles
 from viamd_tpu_torch.render import triangles as tri_mod
 from viamd_tpu_torch.render.backbone_rep import backbone_tube, current_ss_weights
-from viamd_tpu_torch.render.color import color_atoms_secondary_structure
+from viamd_tpu_torch.render.color import (
+    color_atoms_cpk, color_atoms_secondary_structure, desaturate_colors, filter_colors,
+)
 from viamd_tpu_torch.render.overlay import OverlayQueue
 from viamd_tpu_torch.render.ribbon_mesh import ribbon_mesh, ribbon_tables, ribbon_view
 from viamd_tpu_torch.render.triangles import (
@@ -3093,6 +3106,126 @@ def density_volume_check(dev, n_waters: int, width: int, height: int) -> str:
             f"{len(b_g)} bonds equal")
 
 
+# [colors] (phase 23): the cells' colour launches. The capsid's are
+# stmv.cartoon's (filter protein, chain 1's residues selected, SS weights of
+# its base frame), the water box's water1m.view's (CPK, filter all, the
+# first 2,000 waters selected, the radii)
+COLORS_WATERS, COLORS_CAPSID_SELECTION, COLORS_WATER_SELECTION = (
+    333_334, "residue(1:159)", "residue(1:2000)")
+
+
+def host_colors(sys_, ss_np, mask, sel) -> np.ndarray:
+    """The colours as Session made them on the host before csrc/colors.cu:
+    color.py's numpy chain over every atom (SS blend or CPK, the filter,
+    the selection's desaturation)."""
+    cols = (color_atoms_secondary_structure(sys_, ss_np) if ss_np is not None
+            else color_atoms_cpk(sys_))
+    return desaturate_colors(filter_colors(cols, mask), ~sel)
+
+
+def colors_case(dev, name, sys_, args, want_np, plain_reps: int = 5) -> dict:
+    """One colours launch: against its plain version on the card (bit for
+    bit) and the numpy chain (alpha and radii bit-equal, rgb within 1e-6),
+    one launch a call, its device time behind a queued sleep and with
+    events around the call, its host time behind a queued sleep, the byte
+    bound, the plain version's time."""
+    base, ss, bbres, mask, sel, subset, radius = args
+    before = cuda_colors.launches
+    got = cuda_colors.atom_colors(*args)
+    per_call = cuda_colors.launches - before
+    want = cuda_colors.colors_plain(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        if (g is None) != (w is None) or (g is not None and not torch.equal(g, w)):
+            raise AssertionError(f"colors {name}: the kernel differs from colors_plain")
+    if per_call != 1:
+        raise AssertionError(f"colors {name}: {per_call} launches a call, expected 1")
+    cols = got[0].cpu().numpy()
+    idx = np.arange(sys_.natoms) if subset is None else subset.cpu().numpy()
+    ref = want_np[idx]
+    err = float(np.abs(cols[:, :3] - ref[:, :3]).max())
+    if not np.array_equal(cols[:, 3], ref[:, 3]) or err > 1e-6:
+        raise AssertionError(f"colors {name}: {err:.3g} from the numpy chain, or alpha apart")
+    if radius is not None:
+        r_want = np.where(ref[:, 3] > 0, sys_.radius[idx], 0.0).astype(np.float32)
+        if not np.array_equal(got[1].cpu().numpy(), r_want):
+            raise AssertionError(f"colors {name}: radii differ from the numpy chain's")
+    ms = cuda_ms(lambda: cuda_colors.atom_colors(*args), queued=True)
+    call_ms = cuda_ms(lambda: cuda_colors.atom_colors(*args))
+    host = host_ms(lambda: cuda_colors.atom_colors(*args), queued=True)
+    if host > 0.5:
+        raise AssertionError(f"colors {name}: {host:.4f} ms of host time behind a ~1 ms "
+                             "queued sleep: the launch waits on the device")
+    with uncounted():
+        plain_ms = cuda_ms(lambda: cuda_colors.colors_plain(*args), reps=plain_reps, warmup=1)
+    m, nw = idx.size, 2 * ((sys_.natoms + 63) // 64)
+    nbytes = m * 16 + (m * 4 if subset is not None else 0)  # colours out, the subset in
+    nbytes += m * 16 if base is not None else m * 4 + ss.numel() * 4  # table, or bbres + SS
+    nbytes += sum(min(4 * nw, 4 * m) for t in (mask, sel) if t is not None)  # the bits' words
+    nbytes += m * 8 if radius is not None else 0  # the radius in, the radius out
+    b_ms, b_by = bound(0.0, nbytes)
+    return dict(name=name, atoms=m, launches=per_call, max_abs_err=err, ms=ms, call_ms=call_ms,
+                host_ms=host, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, bytes=nbytes)
+
+
+def colors_phase(dev, capsid=None, n_waters: int = COLORS_WATERS, host_reps: int = 3) -> dict:
+    """[colors] (phase 23): csrc/colors.cu at the cells' sizes. The capsid
+    (`capsid` = (system, frame), or capsid_frame()): SS colours over its
+    9,540 CA atoms (stmv.cartoon's launch) and over every atom with the
+    radii; a water box of n_waters: CPK colours with the radii
+    (water1m.view's launch). Each case against the plain version and the
+    numpy chain (`colors_case`); the numpy chain's host time with its
+    upload, the route the session took before the kernel."""
+    from viamd_tpu_torch.script import evaluate_filter
+
+    t0 = time.perf_counter()
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    cap_sys, cap_x = capsid if capsid is not None else capsid_frame()
+    protein, _ = evaluate_filter("protein", cap_sys, device=dev)
+    chain1, _ = evaluate_filter(COLORS_CAPSID_SELECTION, cap_sys, device=dev)
+    ss = current_ss_weights(cap_sys, cap_x, device=dev).contiguous()
+    ss_np = ss.cpu().numpy()
+    cap_words = [t(cuda_colors.words(b)) for b in (protein, chain1)]
+    bbres = t(cuda_colors.backbone_residues(cap_sys))
+    cap_ca = t(np.asarray(cap_sys.backbone.atom_ca, np.int32))
+    cap_r = t(np.asarray(cap_sys.radius, np.float32))
+    cap_want = host_colors(cap_sys, ss_np, protein, chain1)
+    wat_sys, _ = water_box(n_waters, n_frames=1, seed=SEED)
+    every, _ = evaluate_filter("all", wat_sys, device=dev)
+    first, _ = evaluate_filter(COLORS_WATER_SELECTION, wat_sys, device=dev)
+    wat_args = [t(color_atoms_cpk(wat_sys)), None, None, t(cuda_colors.words(every)),
+                t(cuda_colors.words(first)), None, t(np.asarray(wat_sys.radius, np.float32))]
+    wat_want = host_colors(wat_sys, None, every, first)
+    cases = [
+        colors_case(dev, "capsid, SS, CA subset", cap_sys,
+                    [None, ss, bbres, *cap_words, cap_ca, None], cap_want),
+        colors_case(dev, "capsid, SS, all atoms, radii", cap_sys,
+                    [None, ss, bbres, *cap_words, None, cap_r], cap_want),
+        colors_case(dev, "water, CPK, all atoms, radii", wat_sys, wat_args, wat_want),
+    ]
+
+    def host_route(sys_, ss_np, mask, sel):  # the chain, the radii, their pageable upload
+        cols = host_colors(sys_, ss_np, mask, sel)
+        radii = np.where(cols[:, 3] > 0, sys_.radius, 0.0).astype(np.float32)
+        return torch.as_tensor(cols, device=dev), torch.as_tensor(radii, device=dev)
+
+    host = {"capsid": host_ms(lambda: host_route(cap_sys, ss_np, protein, chain1),
+                              reps=host_reps),
+            "water": host_ms(lambda: host_route(wat_sys, None, every, first), reps=host_reps)}
+    phase("colors", t0, " || ".join(
+        f"{c['name']} ({c['atoms']} atoms): equal to colors_plain bit for bit, within "
+        f"{c['max_abs_err']:.3g} of the numpy chain (alpha and radii bit-equal); "
+        f"{c['launches']} launch a call; device time (queued) {c['ms']:.4f} ms, events around "
+        f"the call {c['call_ms']:.4f} ms, host {c['host_ms']:.4f} ms; bound {c['bound_ms']:.4f} "
+        f"ms ({c['bound_by']}; {c['bytes']} bytes), the kernel at "
+        f"{c['bound_ms'] / c['ms'] * 100:.1f}%; plain {c['plain_ms']:.3f} ms" for c in cases)
+        + f" || the numpy chain + radii + upload (the session's route before the kernel): "
+        f"capsid {host['capsid']:.1f} ms, water {host['water']:.1f} ms; ptxas: "
+        + (" | ".join(ln.strip() for ln in cuda_build.build_info["colors"]["log"].splitlines()
+                      if "registers" in ln or "spill" in ln) or "(build reused)"))
+    return dict(cases=cases, host_ms=host)
+
+
 SESSION_TAA_FRAMES, SESSION_OUTLINE = 16, "residue(1:2000)"
 SESSION_STAGES = ("raster", "outline", "volume", "postprocess")
 # the modules that declare a CUDA kernel library, each with its `launches`
@@ -4171,6 +4304,10 @@ def main() -> None:
     # -- 22. multi-device evaluation, ranks sharing the card
     multi = multi_phase(dev, sys_, traj, res, tri)
 
+    # -- 23. the per-atom colours at the cells' sizes
+    col = colors_phase(dev)
+    col_main = col["cases"][0]
+
     print(json.dumps({"kernels": [
         {
             "name": "pair_hist",
@@ -4337,6 +4474,23 @@ def main() -> None:
             "call_ms": hb["call_ms"],
             "frame_ms": hb["frame_ms"],
             "frame_plain_ms": hb["frame_plain_ms"],
+            "library_ms": None,
+        },
+        {
+            "name": "colors",
+            "route": "cuda",
+            "source": "viamd_tpu_torch/csrc/colors.cu",
+            "replaces": "render/color.py's numpy chain in Session._rep_colors (host)",
+            "launches": sum(c["launches"] for c in col["cases"]),
+            "launches_session": session["colors"],
+            "max_abs_err": max(c["max_abs_err"] for c in col["cases"]),
+            "ms": col_main["ms"],
+            "plain_ms": col_main["plain_ms"],
+            "bound_ms": col_main["bound_ms"],
+            "bound_by": col_main["bound_by"],
+            "call_ms": col_main["call_ms"],
+            "cases": col["cases"],
+            "host_route_ms": col["host_ms"],
             "library_ms": None,
         },
     ]}))

@@ -204,7 +204,7 @@ def test_cartoon_spans(small_cell, tracer_state):
         paths[x.name] = "/".join(chain)
     assert paths["cartoon.ss"] == "render/render.colors/cartoon.ss"
     assert paths["cartoon.mesh"] == "render/render.draw/cartoon.mesh"
-    assert paths["cartoon.upload"] == "render/render.draw/cartoon.upload"
+    assert paths["cartoon.gather"] == "render/render.draw/cartoon.gather"
     assert paths["triangles.bin"] == "render/render.draw/triangles.bin"
     assert paths["triangles.kernel"] == "render/render.draw/triangles.kernel"
 

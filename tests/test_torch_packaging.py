@@ -40,7 +40,7 @@ def test_card_command_lists_every_card_test():
     listed = re.findall(r"tests/(test_\w+\.py)", cmd[:cmd.index("\n\n")])
     card = sorted(p.name for p in (ROOT / "tests").glob("test_*.py")
                   if re.search(r"^@pytest\.mark\.requires_cuda$", p.read_text(), re.M))
-    assert sorted(listed) == card and len(card) == 19
+    assert sorted(listed) == card and len(card) == 20
     for name in card:
         top = [ln for ln in (ROOT / "tests" / name).read_text().splitlines()
                if re.match(r"(import|from) (jax|viamd_tpu\b|tests\b)", ln)]

@@ -416,7 +416,7 @@ def test_recenter_on_card_bit_equal(cuda, tmp_path):
 def _sphere_scene(s, rep, jitter=(0.0, 0.0), width=W, height=H):
     """The scene the port session draws for one sphere representation, as
     tests/test_torch_render.py's scene dict (for its undecided pixels)."""
-    cols = s._rep_colors(rep, None, True)
+    cols = s._rep_colors(rep, None, True)[0].cpu().numpy()
     cam = s._camera()
     return dict(
         positions=s.current_coords(),

@@ -31,7 +31,7 @@ Differences from the JAX package, on purpose:
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional
 
 import numpy as np
@@ -86,6 +86,8 @@ class Representation:
     mask: Optional[Bitfield] = None
     dynamic: bool = False
     error: str = ""
+    # the colours' inputs on the device (render/cuda_colors.py::ColorState)
+    colors: Optional[object] = field(default=None, repr=False, compare=False)
 
 
 def _f32(a) -> np.ndarray:
@@ -577,19 +579,22 @@ class Session:
         self.events.broadcast(EventType.EVAL_COMPLETE, res)
         return res
 
-    def _property_colors(self, rep) -> np.ndarray:
+    def _property_colors(self, rep) -> tuple:
         """ColorMapping::Property (viamd.cpp:1408-1445): the current
         frame's value of `rep.prop`, lerped between the bracketing frames,
         normalized over [map_beg, map_end] and sampled from `color_map`.
         Per-structure properties (dim == number of `in`-context
-        structures) color each structure by its own value."""
+        structures) color each structure by its own value. → (key, make):
+        what the colours are made from, and the function that makes the
+        (n, 4) float32 host colours."""
         from viamd_tpu_torch.render import color as color_mod
 
         sys = self.system
         res = self.eval_result
         if res is None or rep.prop not in (res.temporal or {}):
             rep.error = f"property '{rep.prop}' not evaluated"
-            return color_mod.color_atoms_uniform(sys, rep.uniform_color)
+            return (("uniform", tuple(rep.uniform_color)),
+                    lambda: color_mod.color_atoms_uniform(sys, rep.uniform_color))
         vals = np.asarray(res.temporal[rep.prop], np.float64)
         F = vals.shape[0]
         f = float(np.clip(self.frame, 0, F - 1))
@@ -603,7 +608,9 @@ class Session:
                 structures = self.compiled.property(rep.prop).structures
             except KeyError:
                 pass
-        return color_mod.color_atoms_property(
+        key = ("property", np.asarray(v).tobytes(), rep.map_beg, rep.map_end, rep.color_map,
+               id(self.compiled), self._compiled_fp)
+        return key, lambda: color_mod.color_atoms_property(
             sys, v, (rep.map_beg, rep.map_end), rep.color_map, structures=structures,
         )
 
@@ -660,39 +667,60 @@ class Session:
         lo, hi = self.system.aabb()
         self.camera = cam_mod.compute_optimal_view(lo, hi)
 
-    def _rep_colors(self, rep, ss_w, show_selection) -> np.ndarray:
-        """(n, 4) float32 host colours of one representation."""
+    def _rep_colors(self, rep, ss_t, show_selection, *, subset=None, radii=False) -> tuple:
+        """One representation's colours on the session's device → ((m, 4)
+        float32 colours, (m,) float32 raster radii or None): the colour
+        format of every draw. `subset`: an int32 tensor of the atoms to
+        colour (None: all); `radii`: also each atom's radius, 0 where its
+        alpha is 0. One launch of csrc/colors.cu on CUDA, its plain version
+        on the CPU (render/cuda_colors.py), over inputs that this
+        representation's ColorState uploads only when what they are made
+        from changes: the mapping's table (or the backbone residue of each
+        atom, for the secondary structure's weights `ss_t`), the radii, the
+        filter and the selection."""
         from viamd_tpu_torch.render import color as color_mod
+        from viamd_tpu_torch.render import cuda_colors
 
         sys = self.system
+        if rep.colors is None or rep.colors.device != self.device:
+            rep.colors = cuda_colors.ColorState(self.device)
+        st = rep.colors
+        sk = (id(sys), self._system_rev)
+        base = ss = bbres = None
         mapping = color_mod.COLOR_MAPPINGS.get(rep.color_mapping)
-        if rep.color_mapping == "secondary_structure" and ss_w is not None:
-            cols = color_mod.color_atoms_secondary_structure(sys, ss_w)
+        if rep.color_mapping == "secondary_structure" and ss_t is not None:
+            ss = ss_t.contiguous()
+            bbres = st.table("bbres", sk, lambda: cuda_colors.backbone_residues(sys))
         elif rep.color_mapping == "property":
-            cols = self._property_colors(rep)
+            key, make = self._property_colors(rep)
+            base = st.table("base", (*sk, *key), make)
         elif mapping:
-            cols = mapping(sys)
+            base = st.table("base", (*sk, rep.color_mapping), lambda: mapping(sys))
         else:
-            cols = color_mod.color_atoms_uniform(sys, rep.uniform_color)
-        if rep.tint_scale > 0.0 or rep.saturation < 1.0:
-            # per-rep tint/saturation (viamd.cpp:1455-1466)
-            every = np.ones(sys.natoms, bool)
-            if rep.tint_scale > 0.0:
-                cols = color_mod.tint_colors(cols, every, rep.tint_color, rep.tint_scale)
-            if rep.saturation < 1.0:
-                cols = color_mod.desaturate_colors(cols, every, 1.0 - rep.saturation)
+            base = st.table("base", (*sk, "uniform", tuple(rep.uniform_color)),
+                            lambda: color_mod.color_atoms_uniform(sys, rep.uniform_color))
+        mask = sel = radius = None
         if rep.mask is not None:
-            cols = color_mod.filter_colors(cols, rep.mask)
+            mask = st.table("mask", (rep.mask,), lambda: cuda_colors.words(rep.mask))
         if show_selection and self.selection and self.selection.popcount():
             # selection visuals (main.cpp:6612-6700): non-selected
             # atoms desaturate; the outline draws after compositing
-            cols = color_mod.desaturate_colors(cols, ~self.selection)
-        return cols
+            sel = st.table("selection", (self.selection,),
+                           lambda: cuda_colors.words(self.selection))
+        if radii:
+            radius = st.table("radius", sk, lambda: np.asarray(sys.radius, np.float32))
+        # per-rep tint/saturation (viamd.cpp:1455-1466)
+        return cuda_colors.atom_colors(base, ss, bbres, mask, sel, subset, radius,
+                                       tint=rep.tint_color, tint_scale=rep.tint_scale,
+                                       saturation=rep.saturation)
 
-    def _draw_rep(self, rep, cols, coords, coords_np, ss_w, ss_t, cam, width, height, jitter):
+    def _draw_rep(self, rep, cols, radii, coords, coords_np, ss_w, ss_t, cam, width, height,
+                  jitter):
         """One representation → (rgba, depth, pick) tensors, or None when
-        the rep failed (its `error` says why). `ss_w` is the secondary
-        structure's weights on the host, `ss_t` the same on the device."""
+        the rep failed (its `error` says why). `cols` and `radii` are
+        `_rep_colors`' output for the rep's draw; `ss_t` is the secondary
+        structure's weights on the device, `ss_w` the same on the host (the
+        tube's alone)."""
         from viamd_tpu_torch.render import raster
 
         dev = self.device
@@ -740,11 +768,9 @@ class Session:
             with section("cartoon.mesh"):
                 tv = ribbon_view(sys, coords, ss_t, cam.view_matrix(), tables,
                                  cartoon=rep.type == "cartoon", width_scale=rep.radius_scale)
-            with section("cartoon.upload"):
+            with section("cartoon.gather"):
                 # the CA atoms' colours, gathered per triangle on the device
-                ca_cols = torch.as_tensor(cols[sys.backbone.atom_ca], dtype=torch.float32,
-                                          device=dev)
-                tri_cols = ca_cols[tables.res]
+                tri_cols = cols[tables.res]
             return render_triangles(tv, tri_cols, tables.src, proj, width, height, device=dev)
         if rep.type == "tube":
             from viamd_tpu_torch.render.backbone_rep import backbone_tube
@@ -752,13 +778,12 @@ class Session:
             pts, radii_t, src = backbone_tube(sys, coords_np, ss_weights=ss_w,
                                               cartoon=False, radius=0.35 * rep.radius_scale)
             settings = raster.RasterSettings(width=width, height=height)
+            src_t = torch.as_tensor(np.asarray(src, np.int64), device=dev)
             rgba, d, p = raster.render_molecules(
-                pts, radii_t, cols[src], cam.view_matrix(), proj, settings, device=dev,
+                pts, radii_t, cols[src_t], cam.view_matrix(), proj, settings, device=dev,
             )
             # picking: map tube-point hits back to their CA atoms
             return rgba, d, self._map_picks(p, src)
-        # visibility: zero-alpha atoms are culled by radius 0
-        radii = np.where(cols[:, 3] > 0, sys.radius, 0.0).astype(np.float32)
         settings = raster.RasterSettings(width=width, height=height, rep=rep.type,
                                          radius_scale=rep.radius_scale)
         draw_x, draw_r, draw_c = coords, radii, cols
@@ -769,7 +794,8 @@ class Session:
             # viamd.cpp:611-613): expand assembly copies, gather
             # per-atom attributes, remap bonds per instance
             draw_x, src = sys.instances.expansion(coords_np)
-            draw_r, draw_c = radii[src], cols[src]
+            src_t = torch.as_tensor(np.asarray(src, np.int64), device=dev)
+            draw_r, draw_c = radii[src_t], cols[src_t]
             if draw_bonds is not None and len(draw_bonds):
                 bb = []
                 ofs = 0
@@ -868,10 +894,20 @@ class Session:
                     with section("cartoon.ss"):
                         if sys.backbone is not None:
                             ss_t = current_ss_weights(sys, coords, device=dev)
-                            ss_w = ss_t.cpu().numpy()
-                cols = self._rep_colors(rep, ss_w, show_selection)
+                            # the tube's mesh is built on the host
+                            ss_w = ss_t.cpu().numpy() if rep.type == "tube" else None
+                cols = radii = None
+                if rep.type in ("ribbons", "cartoon"):
+                    # the CA atoms' colours alone, one a backbone residue
+                    cols, _ = self._rep_colors(rep, ss_t, show_selection,
+                                               subset=self._ribbon_tables().atoms[0])
+                elif rep.type != "dipole":
+                    # the raster's radii too: zero-alpha atoms are culled by
+                    # radius 0
+                    cols, radii = self._rep_colors(rep, ss_t, show_selection,
+                                                   radii=rep.type != "tube")
             with section("render.draw"):
-                out = self._draw_rep(rep, cols, coords, coords_np, ss_w, ss_t, cam, width,
+                out = self._draw_rep(rep, cols, radii, coords, coords_np, ss_w, ss_t, cam, width,
                                      height, jitter)
             if out is None:
                 continue
